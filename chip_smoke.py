@@ -7,8 +7,13 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
   1. builds every CUDA kernel of the package from csrc/ (one nvcc per source,
      started together) and prints the card's name and power limit;
   2. holds each kernel against its plain PyTorch version on the card, bit for
-     bit: kernel in {1, 2}, K in {2, 8, 15, 79}, 37x53 and 375x450 (odd H,
-     ragged edges, border pixels with valid = alpha = 0);
+     bit: the two phase kernels for kernel in {1, 2}, K in {2, 8, 15, 79},
+     37x53 and 375x450 (odd H, ragged edges, border pixels with valid =
+     alpha = 0); the column send for K in {2, 8, 15, 79} x kernel x L in
+     {53, 1536} x batch in {1, 2}; the fused banded sweep on seven problems
+     up to teddy K = 79 with 128 x 128 blocks, one sweep from zero messages
+     and one from the warm state (messages and seam arrays bit for bit, the
+     lower bound to rtol 1e-5);
   3. drives the main path at full width: DispMapNCC on data/teddy (375x450,
      51 disparities), 72 RANSAC + 6 fronto-parallel proposals, binary fusion
      sweep over all 78, restart, simultaneous fusion over K = 79 labels with
@@ -16,8 +21,14 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      first sweeps through the plain version and compares labels and energy;
   4. drives trws.solve(compact=False) through the full-grid phase kernel and
      compares with the plain version;
-  5. times both kernels at the teddy K = 79 shape (CUDA events) beside their
-     plain versions and their byte / operation bounds, and prints the
+  5. drives the main path again under the banded schedule (what
+     examples/run_ncc_torch.py runs by default): the same model and
+     proposals, 128 x 128 blocks, one launch of the fused sweep kernel per
+     sweep; then repeats the first sweeps through the plain version;
+  6. drives solve_banded(sweep="steps") at the same size through the column
+     send kernel and compares with the plain version and the fused sweep;
+  7. times every kernel at the teddy K = 79 shape (CUDA events) beside its
+     plain version and its byte / operation bounds, and prints the
      ``{"kernels": [...]}`` line.
 
 Every phase prints one JSON line; any failed check raises, so the exit code
@@ -43,8 +54,9 @@ if not torch.cuda.is_available():
 from stereo_tpu_torch import testing  # noqa: E402
 from stereo_tpu_torch.models.ncc import (  # noqa: E402
     DispMapNCC, grid_proposals)
-from stereo_tpu_torch.ops import _build, phase_kernel  # noqa: E402
-from stereo_tpu_torch.solvers import trws  # noqa: E402
+from stereo_tpu_torch.ops import (  # noqa: E402
+    _build, banded_kernel, minplus, phase_kernel)
+from stereo_tpu_torch.solvers import banded, trws  # noqa: E402
 from stereo_tpu_torch.utils import io  # noqa: E402
 from stereo_tpu_torch.utils.metrics import EnergyTrace  # noqa: E402
 
@@ -55,6 +67,10 @@ DEV = torch.device("cuda")
 MAXITER = 40
 CHECK_EVERY = 8
 PLAIN_SWEEPS = 8
+# the banded path's plain version makes ~50,000 small launches per sweep at
+# full width, so fewer of its sweeps are repeated
+PLAIN_SWEEPS_BANDED = 2
+BAND = 128
 PAIR, MAX_DISP, GRID_STEP = "teddy", 50, 50
 EXPECT = dict(size=(375, 450), proposals=78)  # what that configuration gives
 
@@ -74,7 +90,20 @@ KERNELS = {
         wrapper=phase_kernel.phase_messages,
         route="cuda", source="stereo_tpu_torch/csrc/phase_kernel.cu",
         replaces="stereo_tpu/ops/phase_kernel.py:28"),
+    "minplus_send": dict(
+        wrapper=minplus.minplus_send,
+        route="cuda", source="stereo_tpu_torch/csrc/minplus_send.cu",
+        replaces="stereo_tpu/ops/minplus.py:143"),
+    "sweep_banded": dict(
+        wrapper=banded_kernel.sweep_banded,
+        route="cuda", source="stereo_tpu_torch/csrc/banded_kernel.cu",
+        replaces="stereo_tpu/ops/banded_kernel.py:192"),
 }
+# (K, H, W, Bh, Bw) of the fused sweep's comparisons: ragged rows and
+# columns, Bh != Bw both ways (Lp > L), up to the main path's own shape
+BANDED_CASES = ((3, 8, 10, 4, 5), (4, 9, 8, 4, 4), (3, 10, 11, 5, 4),
+                (8, 48, 40, 8, 8), (15, 40, 47, 8, 16), (15, 96, 128, 32, 32),
+                (79, 375, 450, BAND, BAND))
 
 
 def check(ok, what: str):
@@ -112,9 +141,11 @@ def phase_device_and_build():
     ptxas = [ln for log in _build.build_log.values()
              for ln in log["ptxas"].splitlines()
              if "registers" in ln or "spill" in ln]
+    check(sorted(libs) == ["banded_kernel", "minplus_send", "phase_kernel"],
+          f"built {sorted(libs)}")
     say("device+build", card=smi, torch=torch.__version__,
         cuda=torch.version.cuda, built=sorted(libs), build_seconds=secs,
-        ptxas=ptxas[:16])
+        ptxas=ptxas[:48])
     return smi
 
 
@@ -168,9 +199,86 @@ def phase_kernels_vs_plain() -> dict:
     ref = phase_kernel.phase_messages_ref(*args, 1.1, 1)
     if not all(torch.equal(g, r) for g, r in zip(got, ref)):
         raise AssertionError("full-grid kernel != plain version (random mask)")
-    say("kernels_vs_plain", cases=cases + 1, tolerance="bitwise (float32)",
+    cases += 1 + send_vs_plain(err) + banded_sweep_vs_plain(err)
+    say("kernels_vs_plain", cases=cases,
+        tolerance="bitwise (float32); sweep_banded's lower bound rtol 1e-5",
         max_abs_err=err)
     return err
+
+
+def send_vs_plain(err: dict) -> int:
+    """The column send kernel against minplus_send_ref, bit for bit."""
+    cases = 0
+    for K in (2, 8, 15, 79):
+        for kernel in (1, 2):
+            for L in (53, 1536):
+                for B in (1, 2):
+                    args = [torch.as_tensor(a, device=DEV) for a in
+                            testing.send_inputs(K + L + B, B, K, L)]
+                    tol = 1.1 if kernel == 1 else 0.9
+                    got = minplus.minplus_send(*args, tol, kernel)
+                    torch.cuda.synchronize()
+                    ref = minplus.minplus_send_ref(*args, tol, kernel)
+                    for g, r, what in zip(got, ref, ("msg", "vmin")):
+                        err["minplus_send"] = max(err["minplus_send"],
+                                                  float((g - r).abs().max()))
+                        check(torch.equal(g, r),
+                              f"send kernel != plain version ({what}, K={K}, "
+                              f"L={L}, B={B}, kernel={kernel})")
+                    cases += 1
+    # head- and tail-send operand order with broadcast leading axes, as
+    # solvers/banded.py calls it
+    hs, p, r, alpha = [torch.as_tensor(a, device=DEV)
+                       for a in testing.send_inputs(7, 2, 15, 96)]
+    for a in ((hs, p, r[:1], alpha), (hs, r[:1], p, alpha)):
+        got = minplus.minplus_send(*a, 1.1, 1)
+        ref = minplus.minplus_send_ref(*a, 1.1, 1)
+        check(all(torch.equal(g, r_) for g, r_ in zip(got, ref)),
+              "send kernel != plain version (broadcast batch)")
+    return cases + 2
+
+
+def clone_state(state):
+    MA, MB, S = state
+    return MA.clone(), MB.clone(), tuple(s.clone() for s in S)
+
+
+def state_tensors(state):
+    MA, MB, S = state
+    return dict(MA=MA, MB=MB, SxL=S[0], SxR=S[1], SyU=S[2], SyD=S[3])
+
+
+def banded_sweep_vs_plain(err: dict) -> int:
+    """The fused sweep kernel against banded._sweep_steps(use_kernel=False):
+    one sweep from zero messages, one from the warm state."""
+    cases = 0
+    for (K, H, W, Bh, Bw) in BANDED_CASES:
+        for kernel in (1, 2):
+            prob = [torch.as_tensor(a, device=DEV) for a in
+                    testing.trws_problem(K + H + kernel, K, H, W, np.float32)]
+            spec = banded.BandedSpec(H, W, Bh, Bw)
+            bp = banded._BandedProblem(*prob, spec, kernel, 1.0)
+            state = banded.messages_to_state(
+                torch.zeros((4, K, H, W), device=DEV), bp)
+            for start in ("zero", "warm"):
+                ref, lb_ref = banded._sweep_steps(bp, clone_state(state),
+                                                  use_kernel=False)
+                state, lb = banded_kernel.sweep_banded(bp, state)
+                torch.cuda.synchronize()
+                what = f"K={K}, {H}x{W}, {Bh}x{Bw}, kernel={kernel}, {start}"
+                for (name, g), r in zip(state_tensors(state).items(),
+                                        state_tensors(ref).values()):
+                    err["sweep_banded"] = max(err["sweep_banded"],
+                                              float((g - r).abs().max()))
+                    check(torch.equal(g, r),
+                          f"fused sweep != plain version ({name}; {what})")
+                rel = abs(float(lb) - float(lb_ref)) / abs(float(lb_ref))
+                check(rel <= 1e-5, f"fused sweep's bound {float(lb)} vs "
+                      f"{float(lb_ref)} ({what})")
+                cases += 1
+            del prob, bp, state, ref
+        torch.cuda.empty_cache()
+    return cases
 
 
 # --------------------------------------------------------- 3. main path
@@ -191,7 +299,7 @@ def assert_on_card(dm):
                 raise AssertionError(f"model tensor {name} is not on the card")
 
 
-def phase_main_path() -> dict:
+def phase_main_path():
     t0 = time.perf_counter()
     dm = make_model()
     H, W = dm.sz
@@ -267,6 +375,119 @@ def phase_main_path() -> dict:
             f"{ep}, lb {lbk} vs {lbp}, labels equal {torch.equal(ak, ap)}")
     say("main_path_vs_plain", sweeps=PLAIN_SWEEPS, energy=ek, lower_bound=lbk,
         labels_equal=True, kernel_seconds=tk, plain_seconds=tp)
+    same_depth = dict(sweeps=iters, energy=e, lower_bound=lb)
+    return counts, dm, proposals, same_depth
+
+
+# -------------------------------------------- 5. main path, banded schedule
+def phase_banded_path(dm, proposals, checkerboard: dict) -> dict:
+    """The model's default schedule: simultaneous fusion through the fused
+    banded sweep kernel, 128 x 128 blocks, same depth as the checkerboard
+    run."""
+    H, W = dm.sz
+    dm.restart()
+    dm.schedule, dm.band = "banded", BAND
+    dm.use_kernel, dm.maxiter = True, MAXITER
+    dm.solver_chunk_banded = CHECK_EVERY  # one stopping-rule check per chunk
+    spec = banded.BandedSpec(H, W, min(BAND, H), min(BAND, W))
+    trace = EnergyTrace()
+    t0 = time.perf_counter()
+    e, lb, iters = dm.simultaneous_fusion(proposals, trace=trace)
+    t_sim = time.perf_counter() - t0
+    counts = read_counts()
+
+    assert_on_card(dm)
+    check(tuple(dm.assignment.shape) == (4, H, W), "assignment shape")
+    check(bool(torch.isfinite(dm.assignment).all())
+          and bool(torch.isfinite(dm.current_dispmap()).all()),
+          "assignment / disparity map not finite")
+    check(np.isfinite([e, lb]).all() and lb <= e, f"lb {lb} > E {e}")
+    lbs = [s["lower_bound"] for s in trace.samples]
+    slack = 1e-5 * abs(lbs[-1])
+    check(all(b >= a - slack for a, b in zip(lbs, lbs[1:])),
+          f"lower bound decreased between chunks: {lbs}")
+    check(all(s["lower_bound"] <= s["energy"] for s in trace.samples),
+          "lb > E at a check")
+    check(iters > 0 and counts["sweep_banded"] == iters,
+          f"fused sweep launches {counts['sweep_banded']} != 1 per sweep x "
+          f"{iters} sweeps")
+    e_stored = dm.energy()
+    dm.assignment = dm.assignment
+    check(abs(dm.energy() - e_stored) <= 1e-4 * abs(e_stored),
+          "energy of the decoded assignment disagrees")
+    say("banded_path", size=[H, W], K=len(proposals) + 1,
+        blocks=[spec.Bh, spec.Bw], grid=[spec.Gy, spec.Gx], steps=spec.T,
+        lanes=spec.L, simultaneous_energy=e, lower_bound=lb, sweeps=iters,
+        simultaneous_seconds=t_sim, lb_trace=lbs,
+        energy_trace=trace.energies, launches=counts)
+    # an observation, not a check: the two schedules at the same depth
+    say("schedules_at_same_depth", sweeps=iters,
+        checkerboard=dict(energy=checkerboard["energy"],
+                          lower_bound=checkerboard["lower_bound"]),
+        banded=dict(energy=e, lower_bound=lb))
+    check(checkerboard["sweeps"] == iters, "the two runs differ in depth")
+
+    # the same first sweeps through the plain version, on the card
+    out = {}
+    dm.maxiter = dm.check_every = PLAIN_SWEEPS_BANDED
+    for use_kernel in (True, False):
+        dm.restart()
+        dm.use_kernel = use_kernel
+        t0 = time.perf_counter()
+        e2, lb2, it2 = dm.simultaneous_fusion(proposals)
+        out[use_kernel] = (e2, lb2, it2, dm.assignment.clone(),
+                           time.perf_counter() - t0)
+    dm.use_kernel, dm.check_every = True, CHECK_EVERY
+    (ek, lbk, itk, ak, tk), (ep, lbp, _, ap, tp) = out[True], out[False]
+    check(itk == PLAIN_SWEEPS_BANDED and torch.equal(ak, ap) and ek == ep
+          and abs(lbk - lbp) <= 1e-5 * abs(lbp),
+          f"banded kernel vs plain version after {PLAIN_SWEEPS_BANDED} "
+          f"sweeps: E {ek} vs {ep}, lb {lbk} vs {lbp}, labels equal "
+          f"{torch.equal(ak, ap)}")
+    say("banded_path_vs_plain", sweeps=PLAIN_SWEEPS_BANDED, energy=ek,
+        lower_bound=lbk, plain_lower_bound=lbp, labels_equal=True,
+        kernel_seconds=tk, plain_seconds=tp)
+    return counts
+
+
+# ------------------------------------------ 6. the per-step banded sweep
+def phase_steps_path() -> dict:
+    """solve_banded(sweep="steps") at teddy K = 79: every send through the
+    column send kernel; against its plain version and the fused sweep."""
+    K, H, W, sweeps = 79, 375, 450, 1
+    spec = banded.BandedSpec(H, W, BAND, BAND)
+    prob = [torch.as_tensor(a, device=DEV)
+            for a in testing.synthetic_problem(K, H, W)]
+    kw = dict(kernel=1, tol=0.02, Bh=BAND, Bw=BAND, maxiter=sweeps,
+              max_relgap=0.0)
+    t0 = time.perf_counter()
+    got = banded.solve_banded(*prob, **kw, sweep="steps")
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    counts = read_counts()
+    # per step one batched interior head-send, one batched interior
+    # tail-send and four seam sends; T forward and T backward steps
+    expect = 6 * 2 * spec.T * sweeps
+    check(expect == banded.sends_per_sweep(spec) * sweeps
+          and counts["minplus_send"] == expect,
+          f"send kernel launches {counts['minplus_send']} != 6 per step x "
+          f"{2 * spec.T} steps x {sweeps} sweeps = {expect}")
+    plain = banded.solve_banded(*prob, **kw, sweep="steps", use_kernel=False)
+    fused = banded.solve_banded(*prob, **kw, sweep="fused")
+    for name, other in (("plain version", plain), ("fused sweep", fused)):
+        check(torch.equal(got.messages, other.messages)
+              and torch.equal(got.labels, other.labels)
+              and float(got.energy) == float(other.energy),
+              f"steps path != {name}")
+        rel = (abs(float(got.lower_bound) - float(other.lower_bound))
+               / abs(float(other.lower_bound)))
+        check(rel <= 1e-5, f"steps path's bound vs {name}: {rel}")
+    e, lb = float(got.energy), float(got.lower_bound)
+    check(np.isfinite([e, lb]).all() and lb <= e, f"lb {lb} > E {e}")
+    say("steps_path", K=K, size=[H, W], blocks=[BAND, BAND], sweeps=sweeps,
+        steps=2 * spec.T, sends_per_step=6, launches=counts,
+        predicted_send_launches=expect, energy=e, lower_bound=lb,
+        seconds=t_steps, state_equal="bitwise vs plain and vs fused")
     return counts
 
 
@@ -331,14 +552,87 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bounds(planes: int, pixels: int, K: int, sends_px: int) -> dict:
-    """Least time for the work: bytes moved once at the memory rate vs
-    K^2 min-plus steps per send and pixel at the float32 rate."""
-    bytes_ms = planes * pixels * 4 / PEAK_BYTES * 1e3
-    ops_ms = K * K * sends_px * OPS_PER_STEP / PEAK_F32 * 1e3
+def device_ms(fn, reps: int, kernel_name: str) -> float:
+    """Mean time the card spends in one launch of the kernel whose name
+    holds ``kernel_name`` (torch.profiler's device-side records): what is
+    left of ``time_ms`` when the host's cost of a launch is taken out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel_name in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    check(sum(e.count for e in hits) == reps,
+          f"profiler saw {sum(e.count for e in hits)} launches of "
+          f"{kernel_name}, expected {reps}")
+    return sum(e.self_device_time_total for e in hits) / reps * 1e-3
+
+
+def bound_of(n_bytes: float, n_ops: float) -> dict:
+    """Least time (ms) for work that moves ``n_bytes`` once and does
+    ``n_ops`` float32 instructions: the larger of the two at the card's
+    published peaks, and which of them it is."""
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    ops_ms = n_ops / PEAK_F32 * 1e3
     return dict(bytes_ms=bytes_ms, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def bounds(planes: int, pixels: int, K: int, sends_px: int) -> dict:
+    """Least time for the work: bytes moved once at the memory rate vs
+    K^2 min-plus steps per send and pixel at the float32 rate."""
+    return bound_of(planes * pixels * 4, K * K * sends_px * OPS_PER_STEP)
+
+
+def send_bounds(B: int, K: int, L: int) -> dict:
+    """Least time of one column send: (4 K + 2) rows of B x L float32 moved
+    once against K^2 min-plus steps per lane."""
+    return bound_of((4 * K + 2) * B * L * 4, K * K * B * L * OPS_PER_STEP)
+
+
+def sweep_bounds(K: int, pixels: int) -> dict:
+    """Least time of one banded sweep.  Bytes, per real pixel: theta, D0
+    (K floats each), QA, QB (2 K each) and ten scalars read, MA and MB (2 K
+    each) read and written, each counted once (a sweep's two passes read
+    them twice; the padding lanes of the skewed columns need not be moved).
+    Operations: 8 sends x K^2 min-plus steps per real pixel."""
+    return bound_of(pixels * (14 * K + 10) * 4,
+                    8 * pixels * K * K * OPS_PER_STEP)
+
+
+def time_banded_sweep(K: int, H: int, W: int, reps: int) -> dict:
+    """ms per sweep of the fused kernel and of its plain version on a
+    synthetic problem of the given shape, 128 x 128 blocks; the sweeps follow
+    one another on one state (a sweep's work does not depend on the data)."""
+    prob = [torch.as_tensor(a, device=DEV)
+            for a in testing.synthetic_problem(K, H, W)]
+    spec = banded.BandedSpec(H, W, min(BAND, H), min(BAND, W))
+    bp = banded._BandedProblem(*prob, spec, 1, 8.0)
+    del prob
+    state = [banded.messages_to_state(
+        torch.zeros((4, K, H, W), device=DEV), bp)]
+
+    def kernel_sweep():
+        state[0], _ = banded_kernel.sweep_banded(bp, state[0])
+
+    def plain_sweep():
+        state[0], _ = banded._sweep_steps(bp, state[0], use_kernel=False)
+
+    ms = time_ms(kernel_sweep, reps)
+    plain = time_ms(plain_sweep, 2, warmup=0)
+    row = dict(ms=ms, plain_ms=plain,
+               shape=dict(K=K, H=H, W=W, Bh=spec.Bh, Bw=spec.Bw, T=spec.T,
+                          L=spec.L),
+               **sweep_bounds(K, H * W))
+    del bp, state
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_timings(launches: dict, err: dict) -> list:
@@ -364,12 +658,34 @@ def phase_timings(launches: dict, err: dict) -> list:
     rows.append(dict(name="phase_messages", ms=ms, plain_ms=plain,
                      shape=dict(K=K, H=H, W=W),
                      **bounds(18 * K + 13, H * W, K, 4 * H * W)))
+    del args
+    torch.cuda.empty_cache()
+    # the column send at the shape a banded step gives it: the direction pair
+    # of one group, K labels, all L lanes
+    B, L = 2, banded.BandedSpec(H, W, BAND, BAND).L
+    args = [torch.as_tensor(a, device=DEV)
+            for a in testing.send_inputs(1, B, K, L)]
+    ms = time_ms(lambda: minplus.minplus_send(*args, 8.0, 1), 50, warmup=5)
+    plain = time_ms(lambda: minplus.minplus_send_ref(*args, 8.0, 1), 10)
+    # a launch's host cost (wrapper, ctypes, CUDA runtime) exceeds the kernel's
+    # time at this size, so the card's own time is reported beside ``ms``
+    on_device = device_ms(lambda: minplus.minplus_send(*args, 8.0, 1), 50,
+                          "minplus_send_kernel")
+    rows.append(dict(name="minplus_send", ms=ms, device_ms=on_device,
+                     plain_ms=plain, shape=dict(B=B, K=K, L=L),
+                     **send_bounds(B, K, L)))
+    del args
+    # the fused sweep at the main path's shape, and at K = 15 on 370 x 413
+    # (the shape of the baby2 pair; synthetic data) for the record
+    rows.append(dict(name="sweep_banded", **time_banded_sweep(K, H, W, 12)))
+    say("sweep_banded_k15", **time_banded_sweep(15, 370, 413, 12))
     for r in rows:
         meta = KERNELS[r["name"]]
         r.update(route=meta["route"], source=meta["source"],
                  replaces=meta["replaces"], launches=launches[r["name"]],
                  max_abs_err=err[r["name"]],
-                 # no single PyTorch call computes a min-plus phase
+                 # no single PyTorch call computes a min-plus phase, a column
+                 # send or a sweep
                  library_ms=None)
         if r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} was never launched on "
@@ -382,12 +698,20 @@ def main():
     err = phase_kernels_vs_plain()
 
     reset_counts()
-    main_counts = phase_main_path()
+    main_counts, dm, proposals, same_depth = phase_main_path()
     reset_counts()
     full_counts = phase_full_grid_path()
-    launches = {"phase_messages_compact": main_counts[
-        "phase_messages_compact"],
-        "phase_messages": full_counts["phase_messages"]}
+    reset_counts()
+    banded_counts = phase_banded_path(dm, proposals, same_depth)
+    del dm, proposals
+    torch.cuda.empty_cache()
+    reset_counts()
+    steps_counts = phase_steps_path()
+    launches = {
+        "phase_messages_compact": main_counts["phase_messages_compact"],
+        "phase_messages": full_counts["phase_messages"],
+        "sweep_banded": banded_counts["sweep_banded"],
+        "minplus_send": steps_counts["minplus_send"]}
 
     rows = phase_timings(launches, err)
     print(json.dumps({"kernels": rows}), flush=True)

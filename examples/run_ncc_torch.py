@@ -33,10 +33,12 @@ def main():
     ap.add_argument("--max-disp", type=int, default=50)
     ap.add_argument("--grid-step", type=int, default=50)
     ap.add_argument("--skip-simultaneous", action="store_true")
-    ap.add_argument("--schedule", default="checkerboard",
-                    choices=["checkerboard"],
-                    help="TRW-S schedule for the simultaneous phase (the "
-                         "other schedules of run_ncc.py are not ported yet)")
+    ap.add_argument("--schedule", default="banded",
+                    choices=["banded", "checkerboard"],
+                    help="TRW-S schedule for the simultaneous phase: banded "
+                         "(blocked wavefront, as run_ncc.py's default) or "
+                         "checkerboard; run_ncc.py's wavefront and scanline "
+                         "are not ported yet")
     ap.add_argument("--maxiter", type=int, default=1000)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "float64"],

@@ -59,3 +59,30 @@ def dispmap_ncc_from_numpy(images, disparities, kernel, unary_weight, tol,
     # setting the assignment recomputes the stored energy
     dm.assignment = dm.assignment if assignment is None else assignment
     return dm
+
+
+def banded_state_from_numpy(state, *, dtype=None, device=DEFAULT_DEVICE):
+    """A banded solver state ``(MA, MB, (SxL, SxR, SyU, SyD))`` of the JAX
+    package (``solvers.banded``; anything ``np.asarray`` takes) as contiguous
+    tensors on ``device``: what ``solvers.banded.BandedRun.run`` and
+    ``ops.banded_kernel.sweep_banded`` of this package take, for a problem
+    of the same spec — so one package can warm-start from the other's
+    messages.  ``dtype`` defaults to MA's."""
+    dev = resolve_device(device)
+    MA, MB, S = state
+    if len(S) != 4:
+        raise ValueError("banded state: expected four seam arrays")
+    if dtype is None:
+        dtype = torch.as_tensor(np.asarray(MA)).dtype
+    if np.shape(MA) != np.shape(MB) or np.ndim(MA) != 4:
+        raise ValueError("banded state: MA and MB must both be [T+2, 2, K, L]")
+    as_t = lambda a: _as(a, dtype, dev).contiguous()
+    return as_t(MA), as_t(MB), tuple(as_t(s) for s in S)
+
+
+def banded_state_to_numpy(state):
+    """The inverse: this package's banded state as numpy arrays, in the
+    nesting the JAX package's ``solvers.banded`` functions take."""
+    MA, MB, S = state
+    to_np = lambda t: t.detach().cpu().numpy()
+    return to_np(MA), to_np(MB), tuple(to_np(s) for s in S)

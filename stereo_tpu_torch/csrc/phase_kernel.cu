@@ -39,23 +39,17 @@
 // (pick_kt below): a large block re-reads the sources less often, a small
 // one wastes less work on the ragged last block.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "minplus.cuh"
 
 namespace {
+
+using minplus::trunc_cost;
 
 constexpr int THREADS = 128;  // threads per block, along the pixel axis
 // Register-block sizes (targets held per pass over the sources); pick_kt
 // below chooses one of the two per launch from K.
 constexpr int KT_SMALL = 16;
 constexpr int KT_LARGE = 40;
-
-template <int KERNEL>
-__device__ __forceinline__ float trunc_cost(float q, float d0, float tol) {
-  float diff = q - d0;
-  float c = (KERNEL == 1) ? fabsf(diff) : diff * diff;
-  return fminf(c, tol);
-}
 
 // One send for the calling thread's pixel.  All pointers are already offset
 // to the pixel; label planes are `stride` floats apart.  TARGET_IS_Q tells

@@ -9,9 +9,10 @@ All state lives on one device, chosen at construction (``device="cuda"`` by
 default; the CPU only on request).  The class sequences plain functions on
 tensors; loops over moves and sweeps are Python loops.
 
-This slice runs the checkerboard schedule and the device fusion backend
-only; the other schedules and the host (QPBO) backend are named in
-ROADMAP.md and raise NotImplementedError here.
+Simultaneous fusion runs the checkerboard schedule (solvers/trws.py) or the
+banded one (solvers/banded.py, blocks of ``band`` x ``band`` pixels), on the
+device fusion backend; the scanline and wavefront schedules and the host
+(QPBO) backend are named in ROADMAP.md and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from stereo_tpu_torch import energy, geometry
 from stereo_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from stereo_tpu_torch.solvers import binary, trws
+from stereo_tpu_torch.solvers import banded, binary, trws
 from stereo_tpu_torch.utils.profiling import PhaseTimings
 
 _SCHEDULES = ("checkerboard", "scanline", "wavefront", "banded")
@@ -30,10 +31,11 @@ _SCHEDULES = ("checkerboard", "scanline", "wavefront", "banded")
 def _check_schedule(schedule: str):
     if schedule not in _SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule != "checkerboard":
+    if schedule not in ("checkerboard", "banded"):
         raise NotImplementedError(
             f"schedule {schedule!r} is not ported yet (ROADMAP.md, 'Modules "
-            "to port'); this package runs schedule='checkerboard'")
+            "to port'); this package runs schedule='checkerboard' and "
+            "'banded'")
 
 
 class DispMap:
@@ -66,6 +68,8 @@ class DispMap:
         self.check_every = check_every
         _check_schedule(schedule)
         self.schedule = schedule
+        # block side of the banded schedule (clamped to the image)
+        self.band = 128
         if fusion_backend not in ("device", "host"):
             raise ValueError(f"unknown fusion backend {fusion_backend!r}")
         if fusion_backend == "host":
@@ -79,8 +83,8 @@ class DispMap:
         self._stored_energy = float("inf")
         # cumulative per-phase wall clock
         self.timings = PhaseTimings()
-        # False runs the plain PyTorch TRW-S phases instead of the CUDA
-        # kernels: a comparison aid for the smoke run and the tests only
+        # False runs the plain PyTorch TRW-S phases / sweeps instead of the
+        # CUDA kernels: a comparison aid for the smoke run and the tests only
         self.use_kernel = True
 
     # ------------------------------------------------------------- state
@@ -226,9 +230,10 @@ class DispMap:
         self._stored_energy = energies[-1]
         return len(energies)
 
-    # TRW-S runs in chunks of this many sweeps; messages warm-start across
-    # chunks, so the trajectory is identical to one long run
+    # TRW-S runs in chunks of this many sweeps (per schedule); messages
+    # warm-start across chunks, so the trajectory is identical to one long run
     solver_chunk: int = 300
+    solver_chunk_banded: int = 400
 
     def simultaneous_fusion(self, proposals, verbose: bool = False,
                             trace=None) -> tuple[float, float, int]:
@@ -251,13 +256,16 @@ class DispMap:
         # last
         best_e = float("inf")
         best_labels = None
+        chunk_size = (self.solver_chunk_banded if self.schedule == "banded"
+                      else self.solver_chunk)
         while total_iters < self.maxiter:
-            chunk = min(self.solver_chunk, self.maxiter - total_iters)
+            chunk = min(chunk_size, self.maxiter - total_iters)
             with self.timings.phase("simultaneous_fusion"):
                 labels, e, lb, iters, messages = _simultaneous_fusion_step(
                     stack, unary, self.smooth_weights, self.smoothness_kernel,
                     self.tol, self.normalize, chunk, self.max_relgap,
-                    self.check_every, messages, self.use_kernel)
+                    self.check_every, messages, self.use_kernel,
+                    self.schedule, self.band)
                 ef, lbf = float(e), float(lb)
             total_iters += int(iters)
             if ef < best_e:
@@ -357,12 +365,21 @@ def _fusion_sweep(current, prop_stack, weights, kernel, tol, normalize,
 
 def _simultaneous_fusion_step(prop_stack, unary, weights, kernel, tol,
                               normalize, maxiter, max_relgap, check_every=1,
-                              messages=None, use_kernel=True):
-    """One chunk of checkerboard TRW-S on the K-label fusion problem."""
+                              messages=None, use_kernel=True,
+                              schedule="checkerboard", band=128):
+    """One chunk of TRW-S on the K-label fusion problem, under the
+    checkerboard or the banded schedule."""
     D0, Q = _positions(prop_stack, normalize)  # [K, H, W], [4, K, H, W]
-    res = trws.solve(
+    extra = {}
+    if schedule == "banded":
+        _solve = banded.solve_banded
+        H, W = unary.shape[-2:]
+        extra = dict(Bh=max(2, min(band, H)), Bw=max(2, min(band, W)))
+    else:
+        _solve = trws.solve
+    res = _solve(
         unary, D0, Q, weights, kernel=kernel, tol=tol, maxiter=maxiter,
         max_relgap=max_relgap, check_every=check_every, messages=messages,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, **extra)
     return (res.labels, res.energy, res.lower_bound, res.iterations,
             res.messages)

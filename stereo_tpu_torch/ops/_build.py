@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc into
-``build/lib<name>-<hash>.so`` (the hash covers the source and the flags, so a
-changed source is rebuilt), then loaded with ctypes.  Nothing is built when
+``build/lib<name>-<hash>.so`` (the hash covers the source, every shared header
+``csrc/*.cuh`` and the flags, so a change to any of them is rebuilt), then
+loaded with ctypes.  Nothing is built when
 the package is imported: ``load(name)`` builds at first use, and
 ``build_all()`` starts one nvcc per source, all together.  A build that fails
 raises with the compiler's output.
@@ -25,9 +26,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# per-source extra flags; phase_kernel: no FMA contraction, so the kernel
-# rounds like the plain PyTorch version (see the note in the source)
-EXTRA_FLAGS = {"phase_kernel": ("-fmad=false",)}
+# per-source extra flags; no FMA contraction, so a kernel rounds like its
+# plain PyTorch version (see the note in each source)
+EXTRA_FLAGS = {"phase_kernel": ("-fmad=false",),
+               "minplus_send": ("-fmad=false",),
+               "banded_kernel": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}  # name -> {"seconds", "ptxas", "path"}
@@ -49,12 +52,19 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> tuple[str, str, tuple[str, ...]]:
-    src = os.path.join(CSRC_DIR, name + ".cu")
+def _target(name: str, csrc_dir: str = CSRC_DIR,
+            build_dir: str = BUILD_DIR) -> tuple[str, str, tuple[str, ...]]:
+    """(source, library path, flags) of ``<csrc_dir>/<name>.cu``; the
+    library's name carries a digest of the flags, the source and every
+    header ``*.cuh`` beside it."""
+    src = os.path.join(csrc_dir, name + ".cu")
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    digest = hashlib.sha256(" ".join(flags).encode())
+    headers = sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(csrc_dir, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    out = os.path.join(build_dir, f"lib{name}-{digest.hexdigest()[:12]}.so")
     return src, out, flags
 
 

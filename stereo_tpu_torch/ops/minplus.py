@@ -1,5 +1,4 @@
-"""Min-plus message math in plain PyTorch (port of
-stereo_tpu/ops/minplus.py::minplus_pair_xla).
+"""Min-plus message math (port of stereo_tpu/ops/minplus.py).
 
 For every pixel and an edge family with source positions P[K], dest positions
 R[K], weight alpha and truncation tol:
@@ -7,16 +6,50 @@ R[K], weight alpha and truncation tol:
     msgA[j] = min_i ( H_A[i] + alpha * TR(|P[i] - R[j]|) )   (source = tail)
     msgB[i] = min_j ( H_B[j] + alpha * TR(|P[i] - R[j]|) )   (source = head)
 
-Used by the plain full-grid phase (ops/phase_kernel.py::phase_messages_ref).
-The per-direction pair kernel and the column send kernel of the JAX module
-are not part of this slice.
+``minplus_pair`` (plain PyTorch, the JAX module's ``minplus_pair_xla``) is
+used by the plain full-grid phase (ops/phase_kernel.py::phase_messages_ref);
+the TPU kernel for it (``_tile_kernel``) is not ported yet (ROADMAP.md).
+
+``minplus_send`` — replaces the TPU kernel
+    ``stereo_tpu/ops/minplus.py::_send_kernel`` (``minplus_send_pallas``).
+    The one-variant send on column-shaped data, for every lane l:
+
+        msg[t] = min_s ( hs[s] + alpha * TR(p[t] - r[s]) )     t, s < K
+
+    minus its minimum over t, and that minimum.  It is every message update
+    of the per-step sweeps of the wavefront family (solvers/wavefront.py::
+    _send_head / _send_tail).  CUDA tensors go through the hand-written
+    kernel (csrc/minplus_send.cu), one launch for the whole leading batch;
+    CPU tensors through the plain version ``minplus_send_ref``.  The kernel
+    is taken for every K: the JAX dispatcher's ``min_k`` threshold weighs a
+    TPU dispatch against XLA's intermediates and does not carry over.
+
+    What bounds it on the card: K^2 min-plus steps of six float32
+    instructions per lane against (3 K + 1) planes read and (K + 1) written;
+    at [2, 79, 1536] both are under a microsecond, so a launch's latency is
+    what one sees (PERF.md has the times).  Design: a thread block owns 32
+    lanes, thread (x, y) holds 8 running minima (targets 8 y .. 8 y + 7) of
+    lane x in registers and walks the K sources once; the block reduces the
+    minimum over targets in shared memory.  Built with ``-fmad=false``:
+    float32 results equal the plain version's bit for bit.  Inputs must be
+    finite (fminf drops a NaN that torch.minimum keeps).  No single PyTorch
+    call computes the function, so there is no library yardstick.
+    ``minplus_send.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from stereo_tpu_torch.energy import truncated_kernel
+from stereo_tpu_torch.ops._launch import check_tensor, launch_failed
+
+# the send kernels split the K targets into blocks of KT over threadIdx.y
+# (csrc/minplus.cuh); a thread block has at most 1024 threads = 32 lanes x 32
+KT = 8
+MAX_K = 32 * KT
 
 
 def minplus_pair(H_A, H_B, P, R, alpha, tol, kernel: int):
@@ -29,3 +62,94 @@ def minplus_pair(H_A, H_B, P, R, alpha, tol, kernel: int):
         msgA.append(torch.min(H_A + term, dim=0).values)
         accB = torch.minimum(accB, H_B[j][None] + term)
     return torch.stack(msgA, dim=0), accB
+
+
+# ------------------------------------------------------------ column send
+def _broadcast_send_args(hs, p, r, alpha):
+    """All four arguments with one common leading shape: [lead, K, L] x 3
+    and [lead, L]."""
+    K, L = hs.shape[-2:]
+    lead = torch.broadcast_shapes(hs.shape[:-2], p.shape[:-2], r.shape[:-2],
+                                  alpha.shape[:-1])
+    hs, p, r = (t.expand(lead + (K, L)) for t in (hs, p, r))
+    return lead, hs, p, r, alpha.expand(lead + (L,))
+
+
+def minplus_send_ref(hs, p, r, alpha, tol, kernel: int):
+    """Plain PyTorch column send; same contract as ``minplus_send``.  One
+    dense [..., K_s, K_t, L] tensor."""
+    _, hs, p, r, alpha = _broadcast_send_args(hs, p, r, alpha)
+    term = alpha[..., None, None, :] * truncated_kernel(
+        p[..., None, :, :] - r[..., :, None, :], kernel, tol)
+    acc = torch.min(hs[..., :, None, :] + term, dim=-3).values  # [.., Kt, L]
+    vmin = torch.min(acc, dim=-2).values
+    return acc - vmin[..., None, :], vmin
+
+
+_lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of a built minplus_send
+    library."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.minplus_send_f32.argtypes = [ptr] * 6 + [f32, i32, i32, i32, i32, ptr]
+    lib.minplus_send_f32.restype = i32
+    return lib
+
+
+def _library():
+    """The compiled kernel, built and bound at first use."""
+    global _lib
+    if _lib is None:
+        from stereo_tpu_torch.ops import _build
+
+        _lib = bind(_build.load("minplus_send"))
+    return _lib
+
+
+def minplus_send(hs, p, r, alpha, tol, kernel: int):
+    """Column send over any leading batch.
+
+    hs (source heights), p (target positions), r (source positions):
+    [..., K, L]; alpha: [..., L]; the leading axes broadcast.  Returns
+    (msg [..., K, L] with its minimum over K subtracted, vmin [..., L]).
+
+    CUDA tensors: float32; one kernel launch on the current stream for the
+    whole batch, no synchronisation (broadcast arguments are copied to the
+    common shape first).  CPU tensors: the plain version."""
+    if kernel not in (1, 2):
+        raise ValueError(f"Unknown smoothness kernel {kernel!r}")
+    if not hs.is_cuda:
+        return minplus_send_ref(hs, p, r, alpha, tol, kernel)
+    K, L = hs.shape[-2:]
+    if K > MAX_K:
+        raise ValueError(f"minplus_send: K = {K} labels, the CUDA kernel "
+                         f"takes at most {MAX_K}")
+    lead, hs, p, r, alpha = _broadcast_send_args(hs, p, r, alpha)
+    dev = hs.device
+    B = 1
+    for n in lead:
+        B *= n
+    hs, p, r = (t.reshape(B, K, L).contiguous() for t in (hs, p, r))
+    alpha = alpha.reshape(B, L).contiguous()
+    for name, t, shape in (("hs", hs, (B, K, L)), ("p", p, (B, K, L)),
+                           ("r", r, (B, K, L)), ("alpha", alpha, (B, L))):
+        check_tensor(name, t, shape, dev)
+    lib = _library()
+    msg = torch.empty((B, K, L), dtype=torch.float32, device=dev)
+    vmin = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B * L > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.minplus_send_f32(
+                hs.data_ptr(), p.data_ptr(), r.data_ptr(), alpha.data_ptr(),
+                msg.data_ptr(), vmin.data_ptr(), float(tol), int(kernel), B,
+                K, L, stream)
+        if code != 0:
+            launch_failed("minplus_send", code)
+        minplus_send.launches += 1
+    return msg.reshape(lead + (K, L)), vmin.reshape(lead + (L,))
+
+
+minplus_send.launches = 0

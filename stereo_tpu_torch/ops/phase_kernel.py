@@ -48,6 +48,8 @@ import torch
 
 from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.geometry import NUM_DIRS
+from stereo_tpu_torch.ops._launch import check_tensor as _check
+from stereo_tpu_torch.ops._launch import launch_failed as _launch_failed
 from stereo_tpu_torch.ops.minplus import minplus_pair
 
 
@@ -127,25 +129,6 @@ def _library():
 
         _lib = bind(_build.load("phase_kernel"))
     return _lib
-
-
-def _check(name: str, t: torch.Tensor, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: the CUDA kernel takes float32, got "
-                         f"{t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _launch_failed(fn: str, code: int):
-    raise RuntimeError(f"{fn}: kernel launch refused (cudaError {code})")
 
 
 # ----------------------------------------------------------------- wrappers

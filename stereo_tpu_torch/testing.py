@@ -91,6 +91,15 @@ def phase_inputs_full(seed: int, K: int, H: int, W: int, color: int = 0,
     return {k: np.ascontiguousarray(v.astype(dtype)) for k, v in out.items()}
 
 
+def send_inputs(seed: int, B: int, K: int, L: int, dtype=np.float32):
+    """Random inputs of ``ops.minplus.minplus_send``: (hs, p, r [B, K, L],
+    alpha [B, L])."""
+    rng = np.random.default_rng(seed)
+    out = (rng.uniform(0, 2, (B, K, L)), rng.uniform(-3, 3, (B, K, L)),
+           rng.uniform(-3, 3, (B, K, L)), rng.uniform(0.5, 2.0, (B, L)))
+    return tuple(np.ascontiguousarray(a.astype(dtype)) for a in out)
+
+
 def textured_pair(seed: int, H: int, W: int, shift: int = 3,
                   noise: float = 2.0):
     """A random textured stereo pair [H, W, 3] x 2 (float64, values around

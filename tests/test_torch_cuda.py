@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from stereo_tpu_torch import testing
+from stereo_tpu_torch.ops import banded_kernel as t_bk
+from stereo_tpu_torch.ops import minplus as t_mp
 from stereo_tpu_torch.ops import phase_kernel as t_pk
+from stereo_tpu_torch.solvers import banded as t_banded
 from stereo_tpu_torch.solvers import trws as t_trws
 
 pytestmark = pytest.mark.cuda
@@ -90,3 +93,93 @@ def test_default_compact_on_card(cuda):
     prob = [torch.as_tensor(a, device=cuda)
             for a in testing.synthetic_problem(4, 9, 10)]
     assert t_trws._Problem(*prob, 1, 1.0, "trws", None, None).compact is True
+
+
+# ------------------------------------------------ the banded schedule's kernels
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("B,K,L", [(1, 2, 53), (2, 15, 96), (2, 79, 53),
+                                   (1, 256, 40)])  # 256: the kernel's most
+def test_send_kernel_bitwise_on_card(cuda, B, K, L, kernel):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in testing.send_inputs(K, B, K, L)]
+    before = t_mp.minplus_send.launches
+    got = t_mp.minplus_send(*args, 1.1, kernel)
+    torch.cuda.synchronize()
+    assert t_mp.minplus_send.launches == before + 1
+    ref = t_mp.minplus_send_ref(*args, 1.1, kernel)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def _banded_problem(cuda, K, H, W, Bh, Bw, kernel):
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.trws_problem(K + H, K, H, W, np.float32)]
+    spec = t_banded.BandedSpec(H, W, Bh, Bw)
+    bp = t_banded._BandedProblem(*prob, spec, kernel, 1.0)
+    state = t_banded.messages_to_state(
+        torch.zeros((4, K, H, W), device=cuda), bp)
+    return prob, bp, state
+
+
+def _clone(state):
+    MA, MB, S = state
+    return MA.clone(), MB.clone(), tuple(s.clone() for s in S)
+
+
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("K,H,W,Bh,Bw", [
+    (3, 8, 10, 4, 5), (4, 9, 8, 4, 4), (3, 10, 11, 5, 4), (3, 9, 4, 4, 4),
+    (3, 4, 9, 4, 3), (3, 6, 5, 6, 5), (15, 40, 47, 8, 16), (9, 13, 11, 2, 2),
+    (96, 7, 9, 3, 4)])  # 96 labels: the most the kernel takes
+def test_banded_sweep_kernel_on_card(cuda, K, H, W, Bh, Bw, kernel):
+    """Two sweeps (zero, then warm state): messages and seam arrays bit for
+    bit, the bound to float32 rounding."""
+    _, bp, state = _banded_problem(cuda, K, H, W, Bh, Bw, kernel)
+    for _ in range(2):
+        ref, lb_ref = t_banded._sweep_steps(bp, _clone(state),
+                                            use_kernel=False)
+        before = t_bk.sweep_banded.launches
+        state, lb = t_bk.sweep_banded(bp, state)
+        torch.cuda.synchronize()
+        assert t_bk.sweep_banded.launches == before + 1
+        assert torch.equal(state[0], ref[0]) and torch.equal(state[1], ref[1])
+        for g, r in zip(state[2], ref[2]):
+            assert torch.equal(g, r)
+        np.testing.assert_allclose(float(lb), float(lb_ref), rtol=1e-5)
+
+
+@pytest.mark.parametrize("sweep", ["fused", "steps"])
+def test_solve_banded_on_card_kernel_equals_plain(cuda, sweep):
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.synthetic_problem(8, 37, 53, seed=1)]
+    kw = dict(kernel=1, tol=0.02, Bh=8, Bw=16, maxiter=3, max_relgap=0.0,
+              sweep=sweep)
+    got = t_banded.solve_banded(*prob, **kw)
+    ref = t_banded.solve_banded(*prob, **kw, use_kernel=False)
+    assert torch.equal(got.labels, ref.labels)
+    assert torch.equal(got.messages, ref.messages)
+    assert float(got.lower_bound) <= float(got.energy)
+
+
+def test_banded_wrappers_raise_on_card_for_bad_input(cuda):
+    prob, bp, state = _banded_problem(cuda, 3, 8, 10, 4, 5, 1)
+    MA, MB, S = state
+    with pytest.raises(ValueError, match="expected"):
+        t_bk.sweep_banded(bp, (MA.cpu(), MB, S))  # a CPU tensor
+    with pytest.raises(ValueError, match="float32"):
+        t_bk.sweep_banded(bp, (MA.double(), MB, S))
+    with pytest.raises(ValueError, match="shape"):
+        t_bk.sweep_banded(bp, (MA[:-1].contiguous(), MB, S))
+    with pytest.raises(ValueError, match="contiguous"):
+        t_bk.sweep_banded(bp, (MA, MB, (S[0].t().contiguous().t(), *S[1:])))
+    _, wide, wide_state = _banded_problem(cuda, t_bk.MAX_K + 1, 6, 6, 3, 3, 1)
+    with pytest.raises(ValueError, match="at most"):
+        t_bk.sweep_banded(wide, wide_state)
+    hs, p, r, alpha = [torch.as_tensor(a, device=cuda)
+                       for a in testing.send_inputs(0, 2, 3, 40)]
+    with pytest.raises(ValueError, match="float32"):
+        t_mp.minplus_send(hs, p.double(), r, alpha, 1.0, 1)
+    with pytest.raises(ValueError, match="expected"):
+        t_mp.minplus_send(hs, p, r.cpu(), alpha, 1.0, 1)
+    with pytest.raises(ValueError, match="kernel"):
+        t_mp.minplus_send(hs, p, r, alpha, 1.0, 3)

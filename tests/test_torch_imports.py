@@ -36,6 +36,10 @@ def _imports(path):
 def test_files_found():
     names = {os.path.relpath(f, ROOT) for f in FILES}
     for must in ("stereo_tpu_torch/solvers/trws.py",
+                 "stereo_tpu_torch/solvers/banded.py",
+                 "stereo_tpu_torch/solvers/wavefront.py",
+                 "stereo_tpu_torch/ops/banded_kernel.py",
+                 "stereo_tpu_torch/ops/minplus.py",
                  "stereo_tpu_torch/ops/phase_kernel.py",
                  "stereo_tpu_torch/models/ncc.py", "chip_smoke.py"):
         assert must in names
@@ -65,10 +69,12 @@ def test_default_device_raises_without_card():
     _skip_if_card()
     from stereo_tpu_torch import convert, energy, geometry, testing
     from stereo_tpu_torch.models.ncc import DispMapNCC
-    from stereo_tpu_torch.solvers import trws
+    from stereo_tpu_torch.solvers import banded, trws
 
     with pytest.raises(RuntimeError, match="cuda"):
         geometry.fronto_parallel(4, 5, 1.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        banded.banded_gamma(banded.BandedSpec(4, 5, 2, 2))
     with pytest.raises(RuntimeError, match="cuda"):
         geometry.grid_points(4, 5)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -79,9 +85,16 @@ def test_default_device_raises_without_card():
     with pytest.raises(RuntimeError, match="cuda"):
         DispMapNCC([im0, im1], np.arange(4), kernel=1, unary_weight=40.0,
                    tol=8.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DispMapNCC([im0, im1], np.arange(4), kernel=1, unary_weight=40.0,
+                   tol=8.0, schedule="banded")
     theta, D0, Q, alphas = testing.trws_problem(0, 3, 4, 5)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.problem_from_numpy(theta, D0, Q, alphas)
+    state = (np.zeros((5, 2, 3, 4)), np.zeros((5, 2, 3, 4)),
+             (np.zeros((3, 4)),) * 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.banded_state_from_numpy(state)
     # asked for explicitly, the CPU is fine
     assert geometry.fronto_parallel(4, 5, 1.0, device="cpu").shape == (4, 4, 5)
 
@@ -93,7 +106,7 @@ def test_unported_options_raise():
 
     im0, im1 = testing.textured_pair(0, 12, 16)
     kw = dict(kernel=1, unary_weight=40.0, tol=8.0, device="cpu")
-    for schedule in ("banded", "wavefront", "scanline"):
+    for schedule in ("wavefront", "scanline"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DispMapNCC([im0, im1], np.arange(4), schedule=schedule, **kw)
     with pytest.raises(ValueError):
@@ -101,7 +114,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DispMapNCC([im0, im1], np.arange(4), fusion_backend="host", **kw)
     dm = DispMapNCC([im0, im1], np.arange(4), **kw)
-    dm.schedule = "banded"
+    dm.schedule = "wavefront"
     with pytest.raises(NotImplementedError):
         dm.simultaneous_fusion([dm.assignment])
     t = [torch.as_tensor(a) for a in testing.trws_problem(0, 3, 4, 5)]
@@ -125,3 +138,59 @@ def test_kernel_wrapper_refuses_wrong_cuda_input():
     with pytest.raises(ValueError, match="expected"):
         phase_kernel._check("gD", t.float(), (2, 3, 4),
                             torch.device("cuda", 0))
+
+
+def test_banded_wrappers_refuse_what_the_kernels_do_not_take():
+    """The checks that run before any launch, on CPU stand-ins: the fused
+    sweep's masks are bool, its state float32 of the spec's shapes; more
+    labels than a thread block can hold are refused."""
+    from stereo_tpu_torch.ops import _launch, banded_kernel, minplus
+    from stereo_tpu_torch.solvers import banded
+
+    mask = torch.zeros(6, dtype=torch.bool)
+    _launch.check_tensor("vSxL", mask, (6,), mask.device, torch.bool)
+    with pytest.raises(ValueError, match="bool"):
+        _launch.check_tensor("vSxL", mask.float(), (6,), mask.device,
+                             torch.bool)
+    with pytest.raises(TypeError):
+        _launch.check_tensor("MA", None, (6,), mask.device)
+    with pytest.raises(RuntimeError, match="refused"):
+        _launch.launch_failed("sweep_banded", 720)
+    spec = banded.BandedSpec(7, 9, 3, 4)
+    shapes = banded_kernel.problem_shapes(spec, 5)
+    assert shapes["MA"] == (spec.T + 2, 2, 5, spec.L)
+    assert shapes["SyU"] == shapes["PyD_q"] == (5, spec.Lp)
+    assert shapes["vSyD"] == shapes["PyU_a"] == (spec.Lp,)
+    assert minplus.MAX_K == 256 and banded_kernel.MAX_K == 96
+    assert banded_kernel.LB_SLOTS == 9
+
+
+def test_build_digest_covers_shared_headers(tmp_path):
+    """A changed csrc/*.cuh must give every source a new library name (so it
+    is rebuilt), and so must a changed source or other flags; no nvcc
+    needed."""
+    from stereo_tpu_torch.ops import _build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "phase_kernel.cu").write_text("// a\n")
+    (csrc / "other.cu").write_text("// a\n")
+    (csrc / "shared.cuh").write_text("// h1\n")
+    target = lambda name: _build._target(name, str(csrc), str(build))
+    src, out1, flags = target("phase_kernel")
+    assert src == str(csrc / "phase_kernel.cu") and "-fmad=false" in flags
+    assert out1.startswith(str(build)) and out1 == target("phase_kernel")[1]
+    other1 = target("other")[1]
+    (csrc / "shared.cuh").write_text("// h2\n")
+    out2, other2 = target("phase_kernel")[1], target("other")[1]
+    assert out2 != out1 and other2 != other1
+    (csrc / "phase_kernel.cu").write_text("// b\n")
+    assert target("phase_kernel")[1] != out2
+    assert target("other")[1] == other2  # another source's bytes do not count
+    (csrc / "second.cuh").write_text("")
+    assert target("other")[1] != other2
+    # the package's own three sources are all built without FMA contraction
+    assert _build.sources() == ["banded_kernel", "minplus_send",
+                                "phase_kernel"]
+    for name in _build.sources():
+        assert "-fmad=false" in _build._target(name)[2]

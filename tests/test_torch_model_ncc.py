@@ -1,8 +1,8 @@
 """The slice as a whole: the same textured random pair and the same
 proposals through stereo_tpu.models.ncc.DispMapNCC and the port's, on the
 CPU in float64.  Binary fusion sweep: energy trace rtol 1e-9, assignment
-equal; simultaneous fusion (checkerboard): (E, lb, iters) rtol 1e-9, labels
-(the resulting plane field) equal."""
+equal; simultaneous fusion (checkerboard, and banded with 8 x 8 blocks): (E, lb,
+iters) rtol 1e-9, labels (the resulting plane field) equal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,6 +102,54 @@ def test_binary_fusion_sweep_then_simultaneous(models):
     # the stored energy is the energy of the stored assignment
     tm.assignment = tm.assignment
     np.testing.assert_allclose(tm.energy(), tE, rtol=1e-9)
+
+
+def test_simultaneous_fusion_banded_schedule(models):
+    """schedule="banded", 8 x 8 blocks (40 x 56 = 5 x 7 blocks): the port's
+    model against the JAX model, from a shared assignment and proposals."""
+    jm, tm, _, _ = models
+    jp, tp = _shared_proposals(models)
+    _restart_both(jm, tm)
+    jm.schedule = tm.schedule = "banded"
+    jm.band = tm.band = 8
+    try:
+        jE, jlb, jit = jm.simultaneous_fusion(jp)
+        tE, tlb, tit = tm.simultaneous_fusion(tp)
+        assert tit == jit
+        np.testing.assert_allclose([tE, tlb], [jE, jlb], rtol=1e-9)
+        assert tlb <= tE
+        np.testing.assert_array_equal(tm.assignment.numpy(),
+                                      np.asarray(jm.assignment))
+        tm.assignment = tm.assignment
+        np.testing.assert_allclose(tm.energy(), tE, rtol=1e-9)
+        # chunked driving warm-starts the banded state: same trajectory
+        tm.restart()
+        tm.assignment = np.asarray(_restart_jax(jm))
+        tm.solver_chunk_banded = 8
+        chunked = tm.simultaneous_fusion(tp)
+        np.testing.assert_allclose(chunked[:2], [tE, tlb], rtol=1e-9)
+        assert chunked[2] == tit
+    finally:
+        jm.schedule = tm.schedule = "checkerboard"
+        tm.solver_chunk_banded = 400
+    # the constructor takes the schedule too; the unported ones still raise
+    im0, im1 = testing.textured_pair(1, H, W, shift=3)
+    dm = TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="banded",
+                     device="cpu")
+    assert dm.schedule == "banded" and dm.band == 128
+    assert dm.solver_chunk_banded == 400
+    for schedule in ("wavefront", "scanline"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule=schedule,
+                        device="cpu")
+    with pytest.raises(ValueError):
+        TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="zigzag",
+                    device="cpu")
+
+
+def _restart_jax(jm):
+    jm.restart()
+    return jm.assignment
 
 
 def test_single_move_and_chunked_solver(models):

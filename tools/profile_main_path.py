@@ -2,7 +2,11 @@
 binary fusion moves and a few sweeps of simultaneous fusion on teddy K = 79.
 
     python3 tools/profile_main_path.py [--moves 3] [--sweeps 16]
+                                       [--schedule checkerboard|banded]
 
+``--schedule`` picks the TRW-S schedule of the simultaneous-fusion window
+(checkerboard: two launches of the compact phase kernel per sweep; banded:
+one launch of the fused banded sweep kernel per sweep, 128 x 128 blocks).
 For each of the two windows it prints one JSON line: host seconds (around a
 synchronise), the sum of the device kernels' time, the device's busy share
 (kernel time over host time), the number of kernel launches, and the kernels
@@ -68,6 +72,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--moves", type=int, default=3)
     ap.add_argument("--sweeps", type=int, default=16)
+    ap.add_argument("--schedule", default="checkerboard",
+                    choices=["checkerboard", "banded"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -75,7 +81,7 @@ def main():
     pair = io.load_pair("teddy", dtype=np.float32)
     dm = DispMapNCC(pair.images, np.arange(0, 51), kernel=1,
                     unary_weight=40.0, tol=8.0, maxiter=args.sweeps,
-                    check_every=8, device="cuda")
+                    check_every=8, schedule=args.schedule, device="cuda")
     proposals = grid_proposals(dm)
     # warm up both windows outside the traces (allocator, kernel load)
     dm.binary_fusion_sweep(proposals[:1])
@@ -85,7 +91,7 @@ def main():
     dm.restart()
     dm.simultaneous_fusion(proposals)
     dm.restart()
-    traced("simultaneous_fusion",
+    traced(f"simultaneous_fusion[{args.schedule}]",
            lambda: dm.simultaneous_fusion(proposals))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
