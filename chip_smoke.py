@@ -13,7 +13,10 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      {53, 1536} x batch in {1, 2}; the fused banded sweep on seven problems
      up to teddy K = 79 with 128 x 128 blocks, one sweep from zero messages
      and one from the warm state (messages and seam arrays bit for bit, the
-     lower bound to rtol 1e-5);
+     lower bound to rtol 1e-5); the min-plus pair for K in {2, 8, 15, 79} x
+     kernel x {37x53, 375x450} (border pixels with alpha = 0); the fused
+     raster-wavefront sweep on nine problems up to teddy K = 79 and up to the
+     kernel's limit of 96 labels, the same two sweeps;
   3. drives the main path at full width: DispMapNCC on data/teddy (375x450,
      51 disparities), 72 RANSAC + 6 fronto-parallel proposals, binary fusion
      sweep over all 78, restart, simultaneous fusion over K = 79 labels with
@@ -27,7 +30,18 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      sweep; then repeats the first sweeps through the plain version;
   6. drives solve_banded(sweep="steps") at the same size through the column
      send kernel and compares with the plain version and the fused sweep;
-  7. times every kernel at the teddy K = 79 shape (CUDA events) beside its
+  7. drives the min-plus pair kernel on its path: one full-grid TRW-S phase
+     at teddy K = 79 per colour, assembled per direction from minplus_pair
+     as the JAX solver's plain branch assembles it, against the full-grid
+     phase kernel on the same inputs, bit for bit;
+  8. drives the main path a third time under the raster-wavefront schedule
+     (examples/run_ncc_torch.py --schedule wavefront): the same model and
+     proposals, 16 sweeps with a decode every 8, one launch of the fused
+     wavefront sweep kernel per sweep; then repeats the first sweeps through
+     the plain version;
+  9. drives solve_wavefront(sweep="steps") at the same size through the
+     column send kernel and compares with the fused sweep;
+ 10. times every kernel at the teddy K = 79 shape (CUDA events) beside its
      plain version and its byte / operation bounds, and prints the
      ``{"kernels": [...]}`` line.
 
@@ -55,8 +69,8 @@ from stereo_tpu_torch import testing  # noqa: E402
 from stereo_tpu_torch.models.ncc import (  # noqa: E402
     DispMapNCC, grid_proposals)
 from stereo_tpu_torch.ops import (  # noqa: E402
-    _build, banded_kernel, minplus, phase_kernel)
-from stereo_tpu_torch.solvers import banded, trws  # noqa: E402
+    _build, banded_kernel, minplus, phase_kernel, wavefront_kernel)
+from stereo_tpu_torch.solvers import banded, trws, wavefront  # noqa: E402
 from stereo_tpu_torch.utils import io  # noqa: E402
 from stereo_tpu_torch.utils.metrics import EnergyTrace  # noqa: E402
 
@@ -71,14 +85,20 @@ PLAIN_SWEEPS = 8
 # full width, so fewer of its sweeps are repeated
 PLAIN_SWEEPS_BANDED = 2
 BAND = 128
+# the wavefront path: a sweep is 2 x 824 thin steps at teddy, so fewer of them
+MAXITER_WAVEFRONT = 16
+PLAIN_SWEEPS_WAVEFRONT = 2
 PAIR, MAX_DISP, GRID_STEP = "teddy", 50, 50
 EXPECT = dict(size=(375, 450), proposals=78)  # what that configuration gives
+FULL = (79, *EXPECT["size"])  # (K, H, W) of the main path's TRW-S problem
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32
 # FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 OPS_PER_STEP = 6  # sub, abs|mul, min, mul, add, min per (i, j) label pair
+# the pair kernel uses every term twice: + add, min for the second output
+OPS_PER_PAIR_STEP = 8
 
 COMPACT_ARGS, FULL_ARGS = testing.COMPACT_ARGS, testing.FULL_ARGS
 KERNELS = {
@@ -98,12 +118,26 @@ KERNELS = {
         wrapper=banded_kernel.sweep_banded,
         route="cuda", source="stereo_tpu_torch/csrc/banded_kernel.cu",
         replaces="stereo_tpu/ops/banded_kernel.py:192"),
+    "minplus_pair": dict(
+        wrapper=minplus.minplus_pair,
+        route="cuda", source="stereo_tpu_torch/csrc/minplus_pair.cu",
+        replaces="stereo_tpu/ops/minplus.py:66"),
+    "sweep_wavefront": dict(
+        wrapper=wavefront_kernel.sweep_wavefront,
+        route="cuda", source="stereo_tpu_torch/csrc/wavefront_kernel.cu",
+        replaces="stereo_tpu/ops/wavefront_kernel.py:179"),
 }
 # (K, H, W, Bh, Bw) of the fused sweep's comparisons: ragged rows and
 # columns, Bh != Bw both ways (Lp > L), up to the main path's own shape
 BANDED_CASES = ((3, 8, 10, 4, 5), (4, 9, 8, 4, 4), (3, 10, 11, 5, 4),
                 (8, 48, 40, 8, 8), (15, 40, 47, 8, 16), (15, 96, 128, 32, 32),
                 (79, 375, 450, BAND, BAND))
+# (K, H, W) of the wavefront sweep's comparisons: the two shapes of the JAX
+# package's own kernel test, H > W and W > H beyond one tile of lanes, two
+# rows, two columns, K = 15, K at the kernel's limit, the main path's shape
+WAVEFRONT_CASES = ((3, 6, 9), (4, 7, 6), (3, 40, 9), (3, 9, 40), (3, 2, 9),
+                   (3, 9, 2), (15, 40, 47), (wavefront_kernel.MAX_K, 7, 9),
+                   FULL)
 
 
 def check(ok, what: str):
@@ -141,11 +175,12 @@ def phase_device_and_build():
     ptxas = [ln for log in _build.build_log.values()
              for ln in log["ptxas"].splitlines()
              if "registers" in ln or "spill" in ln]
-    check(sorted(libs) == ["banded_kernel", "minplus_send", "phase_kernel"],
+    check(sorted(libs) == ["banded_kernel", "minplus_pair", "minplus_send",
+                           "phase_kernel", "wavefront_kernel"],
           f"built {sorted(libs)}")
     say("device+build", card=smi, torch=torch.__version__,
         cuda=torch.version.cuda, built=sorted(libs), build_seconds=secs,
-        ptxas=ptxas[:48])
+        ptxas=ptxas[:64])
     return smi
 
 
@@ -200,10 +235,69 @@ def phase_kernels_vs_plain() -> dict:
     if not all(torch.equal(g, r) for g, r in zip(got, ref)):
         raise AssertionError("full-grid kernel != plain version (random mask)")
     cases += 1 + send_vs_plain(err) + banded_sweep_vs_plain(err)
+    cases += pair_vs_plain(err) + wavefront_sweep_vs_plain(err)
     say("kernels_vs_plain", cases=cases,
-        tolerance="bitwise (float32); sweep_banded's lower bound rtol 1e-5",
-        max_abs_err=err)
+        tolerance="bitwise (float32); the fused sweeps' lower bounds rtol "
+                  "1e-5", max_abs_err=err)
     return err
+
+
+def pair_vs_plain(err: dict) -> int:
+    """The min-plus pair kernel against minplus_pair_ref, bit for bit."""
+    cases = 0
+    for (H, W) in ((37, 53), (375, 450)):
+        for K in (2, 8, 15, 79):
+            for kernel in (1, 2):
+                args = [torch.as_tensor(a, device=DEV)
+                        for a in testing.pair_inputs(K + H + kernel, K, H, W)]
+                tol = 1.1 if kernel == 1 else 0.9
+                got = minplus.minplus_pair(*args, tol, kernel)
+                torch.cuda.synchronize()
+                ref = minplus.minplus_pair_ref(*args, tol, kernel)
+                for g, r, what in zip(got, ref, ("msgA", "msgB")):
+                    err["minplus_pair"] = max(err["minplus_pair"],
+                                              float((g - r).abs().max()))
+                    check(torch.equal(g, r),
+                          f"pair kernel != plain version ({what}, K={K}, "
+                          f"{H}x{W}, kernel={kernel})")
+                    check(bool(torch.isfinite(g).all()),
+                          f"pair kernel: non-finite {what}")
+                cases += 1
+                del args, got, ref
+        torch.cuda.empty_cache()
+    return cases
+
+
+def wavefront_sweep_vs_plain(err: dict) -> int:
+    """The fused wavefront sweep kernel against
+    wavefront._sweep_steps(use_kernel=False): one sweep from zero messages,
+    one from the warm state."""
+    cases = 0
+    for (K, H, W) in WAVEFRONT_CASES:
+        for kernel in (1, 2):
+            prob = [torch.as_tensor(a, device=DEV) for a in
+                    testing.trws_problem(K + H + kernel, K, H, W, np.float32)]
+            sk = wavefront._Skewed(*prob, kernel, 1.0)
+            M = wavefront.messages_to_groups(
+                torch.zeros((4, K, H, W), device=DEV), W)
+            for start in ("zero", "warm"):
+                ref, lb_ref = wavefront._sweep_steps(
+                    sk, (M[0].clone(), M[1].clone()), use_kernel=False)
+                M, lb = wavefront_kernel.sweep_wavefront(sk, M)
+                torch.cuda.synchronize()
+                what = f"K={K}, {H}x{W}, kernel={kernel}, {start}"
+                for name, g, r in zip(("MA", "MB"), M, ref):
+                    err["sweep_wavefront"] = max(err["sweep_wavefront"],
+                                                 float((g - r).abs().max()))
+                    check(torch.equal(g, r),
+                          f"wavefront sweep != plain version ({name}; {what})")
+                rel = abs(float(lb) - float(lb_ref)) / abs(float(lb_ref))
+                check(rel <= 1e-5, f"wavefront sweep's bound {float(lb)} vs "
+                      f"{float(lb_ref)} ({what})")
+                cases += 1
+            del prob, sk, M, ref
+        torch.cuda.empty_cache()
+    return cases
 
 
 def send_vs_plain(err: dict) -> int:
@@ -375,7 +469,8 @@ def phase_main_path():
             f"{ep}, lb {lbk} vs {lbp}, labels equal {torch.equal(ak, ap)}")
     say("main_path_vs_plain", sweeps=PLAIN_SWEEPS, energy=ek, lower_bound=lbk,
         labels_equal=True, kernel_seconds=tk, plain_seconds=tp)
-    same_depth = dict(sweeps=iters, energy=e, lower_bound=lb)
+    same_depth = dict(sweeps=iters, energy=e, lower_bound=lb,
+                      samples=trace.samples)
     return counts, dm, proposals, same_depth
 
 
@@ -426,6 +521,8 @@ def phase_banded_path(dm, proposals, checkerboard: dict) -> dict:
                           lower_bound=checkerboard["lower_bound"]),
         banded=dict(energy=e, lower_bound=lb))
     check(checkerboard["sweeps"] == iters, "the two runs differ in depth")
+    at_depth = dict(sweeps=iters, energy=e, lower_bound=lb,
+                    samples=trace.samples)
 
     # the same first sweeps through the plain version, on the card
     out = {}
@@ -447,7 +544,7 @@ def phase_banded_path(dm, proposals, checkerboard: dict) -> dict:
     say("banded_path_vs_plain", sweeps=PLAIN_SWEEPS_BANDED, energy=ek,
         lower_bound=lbk, plain_lower_bound=lbp, labels_equal=True,
         kernel_seconds=tk, plain_seconds=tp)
-    return counts
+    return counts, at_depth
 
 
 # ------------------------------------------ 6. the per-step banded sweep
@@ -488,6 +585,174 @@ def phase_steps_path() -> dict:
         steps=2 * spec.T, sends_per_step=6, launches=counts,
         predicted_send_launches=expect, energy=e, lower_bound=lb,
         seconds=t_steps, state_equal="bitwise vs plain and vs fused")
+    return counts
+
+
+# ------------------------------------- 7. the min-plus pair kernel on a path
+def phase_from_pairs(gD, gD_shifted, M, Q, D0, alphas, src_is_head, valid,
+                     tol, kernel):
+    """One full-grid TRW-S phase assembled per direction from minplus_pair,
+    as the plain branch of the JAX solver's phase assembles it: the two
+    source heights, the pair, select by colour, subtract the minimum, mask
+    by ``valid``.  Same contract as phase_kernel.phase_messages."""
+    newM, vmins = [], []
+    head = src_is_head > 0
+    for d in range(4):
+        H_A = gD_shifted[d] - M[d]
+        H_B = gD - M[d]
+        msgA, msgB = minplus.minplus_pair(H_A, H_B, Q[d], D0, alphas[d], tol,
+                                          kernel)
+        msg = torch.where(head[None], msgB, msgA)
+        vmin = torch.min(msg, dim=0).values
+        newM.append((msg - vmin[None]) * valid[d][None])
+        vmins.append(vmin)
+    return torch.stack(newM, 0), torch.stack(vmins, 0)
+
+
+def phase_pair_path() -> dict:
+    """The pair kernel's path at teddy K = 79: a phase per colour through
+    four launches of it, against the full-grid phase kernel."""
+    (K, H, W), tol, kernel = FULL, 8.0, 1
+    inputs = [on_card(testing.phase_inputs_full(7 + color, K, H, W, color),
+                      FULL_ARGS) for color in (0, 1)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = [phase_from_pairs(*args, tol, kernel) for args in inputs]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["minplus_pair"] == 8,
+          f"pair kernel launches {counts['minplus_pair']} != 4 directions x "
+          "2 colours")
+    for color, (args, (newM, vmins)) in enumerate(zip(inputs, got)):
+        refM, refv = phase_kernel.phase_messages(*args, tol, kernel)
+        check(torch.equal(newM, refM) and torch.equal(vmins, refv),
+              f"phase assembled from pairs != full-grid phase kernel "
+              f"(colour {color})")
+        check(bool(torch.isfinite(newM).all()), "non-finite messages")
+    say("pair_path", K=K, size=[H, W], colours=2, launches=counts,
+        seconds=secs, equal="bitwise vs phase_messages (messages and minima)")
+    return counts
+
+
+# --------------------------------------- 8. main path, wavefront schedule
+def sample_at(samples, sweeps: int):
+    """The (E, lb) a run recorded at its check after ``sweeps`` sweeps."""
+    hit = [s for s in samples if s.get("iterations") == sweeps]
+    check(len(hit) == 1, f"no check after {sweeps} sweeps in the trace")
+    return dict(energy=hit[0]["energy"], lower_bound=hit[0]["lower_bound"])
+
+
+def phase_wavefront_path(dm, proposals, checkerboard: dict,
+                         banded_run: dict) -> dict:
+    """Simultaneous fusion through the fused raster-wavefront sweep kernel:
+    the same model and proposals, 16 sweeps, a decode every 8."""
+    H, W = dm.sz
+    dm.restart()
+    dm.schedule = "wavefront"
+    dm.use_kernel, dm.maxiter = True, MAXITER_WAVEFRONT
+    dm.check_every = CHECK_EVERY
+    dm.solver_chunk_wavefront = CHECK_EVERY  # one check per chunk
+    trace = EnergyTrace()
+    reset_counts()
+    t0 = time.perf_counter()
+    e, lb, iters = dm.simultaneous_fusion(proposals, trace=trace)
+    t_sim = time.perf_counter() - t0
+    counts = read_counts()
+
+    assert_on_card(dm)
+    check(tuple(dm.assignment.shape) == (4, H, W), "assignment shape")
+    check(bool(torch.isfinite(dm.assignment).all())
+          and bool(torch.isfinite(dm.current_dispmap()).all()),
+          "assignment / disparity map not finite")
+    check(np.isfinite([e, lb]).all() and lb <= e, f"lb {lb} > E {e}")
+    lbs = [s["lower_bound"] for s in trace.samples]
+    slack = 1e-5 * abs(lbs[-1])
+    check(all(b >= a - slack for a, b in zip(lbs, lbs[1:])),
+          f"lower bound decreased between chunks: {lbs}")
+    check(all(s["lower_bound"] <= s["energy"] for s in trace.samples),
+          "lb > E at a check")
+    check(iters == MAXITER_WAVEFRONT
+          and counts["sweep_wavefront"] == MAXITER_WAVEFRONT,
+          f"wavefront sweep launches {counts['sweep_wavefront']} != 1 per "
+          f"sweep x {MAXITER_WAVEFRONT} sweeps (ran {iters})")
+    e_stored = dm.energy()
+    dm.assignment = dm.assignment
+    check(abs(dm.energy() - e_stored) <= 1e-4 * abs(e_stored),
+          "energy of the decoded assignment disagrees")
+    say("wavefront_path", size=[H, W], K=len(proposals) + 1,
+        steps=2 * (H + W - 1), simultaneous_energy=e, lower_bound=lb,
+        sweeps=iters, simultaneous_seconds=t_sim, lb_trace=lbs,
+        energy_trace=trace.energies, launches=counts)
+    # an observation, not a check: the three schedules after as many sweeps
+    say("schedules_at_wavefront_depth", sweeps=iters,
+        checkerboard=sample_at(checkerboard["samples"], iters),
+        banded=sample_at(banded_run["samples"], iters),
+        wavefront=sample_at(trace.samples, iters))
+
+    # the same first sweeps through the plain version, on the card
+    out = {}
+    dm.maxiter = dm.check_every = PLAIN_SWEEPS_WAVEFRONT
+    for use_kernel in (True, False):
+        dm.restart()
+        dm.use_kernel = use_kernel
+        t0 = time.perf_counter()
+        e2, lb2, it2 = dm.simultaneous_fusion(proposals)
+        out[use_kernel] = (e2, lb2, it2, dm.assignment.clone(),
+                           time.perf_counter() - t0)
+    dm.use_kernel, dm.check_every = True, CHECK_EVERY
+    (ek, lbk, itk, ak, tk), (ep, lbp, _, ap, tp) = out[True], out[False]
+    check(itk == PLAIN_SWEEPS_WAVEFRONT and torch.equal(ak, ap) and ek == ep
+          and abs(lbk - lbp) <= 1e-5 * abs(lbp),
+          f"wavefront kernel vs plain version after {PLAIN_SWEEPS_WAVEFRONT} "
+          f"sweeps: E {ek} vs {ep}, lb {lbk} vs {lbp}, labels equal "
+          f"{torch.equal(ak, ap)}")
+    say("wavefront_path_vs_plain", sweeps=PLAIN_SWEEPS_WAVEFRONT, energy=ek,
+        lower_bound=lbk, plain_lower_bound=lbp, labels_equal=True,
+        kernel_seconds=tk, plain_seconds=tp)
+    return counts
+
+
+# --------------------------------------- 9. the per-step wavefront sweep
+def phase_wavefront_steps_path() -> dict:
+    """solve_wavefront(sweep="steps") at teddy K = 79, one sweep: every send
+    through the column send kernel; against the fused sweep."""
+    (K, H, W), sweeps = FULL, 1
+    T = H + W - 1
+    prob = [torch.as_tensor(a, device=DEV)
+            for a in testing.synthetic_problem(K, H, W)]
+    kw = dict(kernel=1, tol=0.02, maxiter=sweeps, max_relgap=0.0)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = wavefront.solve_wavefront(*prob, **kw, sweep="steps")
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    counts = read_counts()
+    # per step one batched head-send and one batched tail-send (a direction
+    # pair each); T forward and T backward steps
+    expect = 2 * 2 * T * sweeps
+    check(expect == wavefront.sends_per_sweep(T) * sweeps
+          and counts["minplus_send"] == expect,
+          f"send kernel launches {counts['minplus_send']} != 2 per step x "
+          f"{2 * T} steps x {sweeps} sweeps = {expect}")
+    fused = wavefront.solve_wavefront(*prob, **kw, sweep="fused")
+    check(torch.equal(got.messages, fused.messages)
+          and torch.equal(got.labels, fused.labels)
+          and float(got.energy) == float(fused.energy),
+          "steps path != fused sweep")
+    rel = (abs(float(got.lower_bound) - float(fused.lower_bound))
+           / abs(float(fused.lower_bound)))
+    check(rel <= 1e-5, f"steps path's bound vs fused sweep: {rel}")
+    e, lb = float(got.energy), float(got.lower_bound)
+    # the raster order all but closes the gap of this easy problem in one
+    # sweep, so the two float32 sums of ~1e5 terms may cross by their rounding
+    check(np.isfinite([e, lb]).all() and lb <= e + 1e-5 * abs(e),
+          f"lb {lb} > E {e}")
+    say("wavefront_steps_path", K=K, size=[H, W], sweeps=sweeps,
+        steps=2 * T, sends_per_step=2, launches=counts,
+        predicted_send_launches=expect, energy=e, lower_bound=lb,
+        seconds=t_steps, state_equal="bitwise vs fused")
     return counts
 
 
@@ -606,6 +871,43 @@ def sweep_bounds(K: int, pixels: int) -> dict:
                     8 * pixels * K * K * OPS_PER_STEP)
 
 
+def pair_bounds(K: int, pixels: int) -> dict:
+    """Least time of one min-plus pair: (4 K + 1) planes read and 2 K
+    written against K^2 label pairs of eight float32 instructions (each
+    term is used for both outputs) per pixel."""
+    return bound_of((6 * K + 1) * pixels * 4,
+                    K * K * pixels * OPS_PER_PAIR_STEP)
+
+
+def time_wavefront_sweep(K: int, H: int, W: int, reps: int) -> dict:
+    """ms per sweep of the fused wavefront kernel and of its plain version on
+    a synthetic problem of the given shape; the sweeps follow one another on
+    one state (a sweep's work does not depend on the data).  The work is a
+    banded sweep's (8 sends per pixel, the same arrays), hence its bounds."""
+    prob = [torch.as_tensor(a, device=DEV)
+            for a in testing.synthetic_problem(K, H, W)]
+    sk = wavefront._Skewed(*prob, 1, 8.0)
+    del prob
+    state = [wavefront.messages_to_groups(
+        torch.zeros((4, K, H, W), device=DEV), W)]
+
+    def kernel_sweep():
+        state[0], _ = wavefront_kernel.sweep_wavefront(sk, state[0])
+
+    def plain_sweep():
+        state[0], _ = wavefront._sweep_steps(sk, state[0], use_kernel=False)
+
+    ms = time_ms(kernel_sweep, reps)
+    plain = time_ms(plain_sweep, 2, warmup=0)
+    T = H + W - 1
+    row = dict(ms=ms, plain_ms=plain, us_per_step=ms * 1e3 / (2 * T),
+               shape=dict(K=K, H=H, W=W, T=T, steps=2 * T),
+               **sweep_bounds(K, H * W))
+    del sk, state
+    torch.cuda.empty_cache()
+    return row
+
+
 def time_banded_sweep(K: int, H: int, W: int, reps: int) -> dict:
     """ms per sweep of the fused kernel and of its plain version on a
     synthetic problem of the given shape, 128 x 128 blocks; the sweeps follow
@@ -679,13 +981,28 @@ def phase_timings(launches: dict, err: dict) -> list:
     # (the shape of the baby2 pair; synthetic data) for the record
     rows.append(dict(name="sweep_banded", **time_banded_sweep(K, H, W, 12)))
     say("sweep_banded_k15", **time_banded_sweep(15, 370, 413, 12))
+    # the pair at the shape one direction of a full-grid phase gives it
+    args = [torch.as_tensor(a, device=DEV)
+            for a in testing.pair_inputs(1, K, H, W)]
+    ms = time_ms(lambda: minplus.minplus_pair(*args, 8.0, 1), 20)
+    plain = time_ms(lambda: minplus.minplus_pair_ref(*args, 8.0, 1), 3,
+                    warmup=1)
+    rows.append(dict(name="minplus_pair", ms=ms, plain_ms=plain,
+                     shape=dict(K=K, H=H, W=W), **pair_bounds(K, H * W)))
+    del args
+    torch.cuda.empty_cache()
+    # the fused wavefront sweep at the main path's shape, and at K = 15 on
+    # 370 x 413, which separates the per-step fixed cost from the arithmetic
+    rows.append(dict(name="sweep_wavefront",
+                     **time_wavefront_sweep(K, H, W, 6)))
+    say("sweep_wavefront_k15", **time_wavefront_sweep(15, 370, 413, 6))
     for r in rows:
         meta = KERNELS[r["name"]]
         r.update(route=meta["route"], source=meta["source"],
                  replaces=meta["replaces"], launches=launches[r["name"]],
                  max_abs_err=err[r["name"]],
-                 # no single PyTorch call computes a min-plus phase, a column
-                 # send or a sweep
+                 # no single PyTorch call computes a min-plus phase, a pair,
+                 # a column send or a sweep
                  library_ms=None)
         if r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} was never launched on "
@@ -702,16 +1019,24 @@ def main():
     reset_counts()
     full_counts = phase_full_grid_path()
     reset_counts()
-    banded_counts = phase_banded_path(dm, proposals, same_depth)
+    banded_counts, banded_run = phase_banded_path(dm, proposals, same_depth)
+    wavefront_counts = phase_wavefront_path(dm, proposals, same_depth,
+                                            banded_run)
     del dm, proposals
     torch.cuda.empty_cache()
     reset_counts()
     steps_counts = phase_steps_path()
+    wavefront_steps_counts = phase_wavefront_steps_path()
+    pair_counts = phase_pair_path()
     launches = {
         "phase_messages_compact": main_counts["phase_messages_compact"],
         "phase_messages": full_counts["phase_messages"],
         "sweep_banded": banded_counts["sweep_banded"],
-        "minplus_send": steps_counts["minplus_send"]}
+        # on the two per-step paths together
+        "minplus_send": (steps_counts["minplus_send"]
+                         + wavefront_steps_counts["minplus_send"]),
+        "minplus_pair": pair_counts["minplus_pair"],
+        "sweep_wavefront": wavefront_counts["sweep_wavefront"]}
 
     rows = phase_timings(launches, err)
     print(json.dumps({"kernels": rows}), flush=True)

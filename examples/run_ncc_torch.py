@@ -34,11 +34,11 @@ def main():
     ap.add_argument("--grid-step", type=int, default=50)
     ap.add_argument("--skip-simultaneous", action="store_true")
     ap.add_argument("--schedule", default="banded",
-                    choices=["banded", "checkerboard"],
+                    choices=["banded", "checkerboard", "wavefront"],
                     help="TRW-S schedule for the simultaneous phase: banded "
-                         "(blocked wavefront, as run_ncc.py's default) or "
-                         "checkerboard; run_ncc.py's wavefront and scanline "
-                         "are not ported yet")
+                         "(blocked wavefront, as run_ncc.py's default), "
+                         "checkerboard or wavefront (exact raster order); "
+                         "run_ncc.py's scanline is not ported yet")
     ap.add_argument("--maxiter", type=int, default=1000)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "float64"],

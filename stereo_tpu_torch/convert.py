@@ -86,3 +86,27 @@ def banded_state_to_numpy(state):
     MA, MB, S = state
     to_np = lambda t: t.detach().cpu().numpy()
     return to_np(MA), to_np(MB), tuple(to_np(s) for s in S)
+
+
+def wavefront_groups_from_numpy(groups, *, dtype=None, device=DEFAULT_DEVICE):
+    """A raster-wavefront message state ``(MA, MB)`` of the JAX package
+    (``solvers.wavefront.messages_to_groups``; anything ``np.asarray`` takes)
+    as contiguous tensors on ``device``: what
+    ``ops.wavefront_kernel.sweep_wavefront`` and
+    ``solvers.wavefront.decode_raster`` of this package take, for a problem
+    of the same size.  ``dtype`` defaults to MA's."""
+    dev = resolve_device(device)
+    MA, MB = groups
+    if dtype is None:
+        dtype = torch.as_tensor(np.asarray(MA)).dtype
+    if (np.shape(MA) != np.shape(MB) or np.ndim(MA) != 4
+            or np.shape(MA)[1] != 2):
+        raise ValueError("wavefront groups: MA and MB must both be "
+                         "[T+2, 2, K, H]")
+    return _as(MA, dtype, dev).contiguous(), _as(MB, dtype, dev).contiguous()
+
+
+def wavefront_groups_to_numpy(groups):
+    """The inverse: this package's ``(MA, MB)`` as numpy arrays."""
+    MA, MB = groups
+    return MA.detach().cpu().numpy(), MB.detach().cpu().numpy()

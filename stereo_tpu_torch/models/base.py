@@ -9,10 +9,11 @@ All state lives on one device, chosen at construction (``device="cuda"`` by
 default; the CPU only on request).  The class sequences plain functions on
 tensors; loops over moves and sweeps are Python loops.
 
-Simultaneous fusion runs the checkerboard schedule (solvers/trws.py) or the
-banded one (solvers/banded.py, blocks of ``band`` x ``band`` pixels), on the
-device fusion backend; the scanline and wavefront schedules and the host
-(QPBO) backend are named in ROADMAP.md and raise NotImplementedError here.
+Simultaneous fusion runs the checkerboard schedule (solvers/trws.py), the
+banded one (solvers/banded.py, blocks of ``band`` x ``band`` pixels) or the
+raster wavefront (solvers/wavefront.py), on the device fusion backend; the
+scanline schedule and the host (QPBO) backend are named in ROADMAP.md and
+raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from stereo_tpu_torch import energy, geometry
 from stereo_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from stereo_tpu_torch.solvers import banded, binary, trws
+from stereo_tpu_torch.solvers import banded, binary, trws, wavefront
 from stereo_tpu_torch.utils.profiling import PhaseTimings
 
 _SCHEDULES = ("checkerboard", "scanline", "wavefront", "banded")
@@ -31,11 +32,11 @@ _SCHEDULES = ("checkerboard", "scanline", "wavefront", "banded")
 def _check_schedule(schedule: str):
     if schedule not in _SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule not in ("checkerboard", "banded"):
+    if schedule == "scanline":
         raise NotImplementedError(
             f"schedule {schedule!r} is not ported yet (ROADMAP.md, 'Modules "
-            "to port'); this package runs schedule='checkerboard' and "
-            "'banded'")
+            "to port'); this package runs schedule='checkerboard', 'banded' "
+            "and 'wavefront'")
 
 
 class DispMap:
@@ -233,6 +234,7 @@ class DispMap:
     # TRW-S runs in chunks of this many sweeps (per schedule); messages
     # warm-start across chunks, so the trajectory is identical to one long run
     solver_chunk: int = 300
+    solver_chunk_wavefront: int = 150
     solver_chunk_banded: int = 400
 
     def simultaneous_fusion(self, proposals, verbose: bool = False,
@@ -256,8 +258,10 @@ class DispMap:
         # last
         best_e = float("inf")
         best_labels = None
-        chunk_size = (self.solver_chunk_banded if self.schedule == "banded"
-                      else self.solver_chunk)
+        chunk_size = {
+            "wavefront": self.solver_chunk_wavefront,
+            "banded": self.solver_chunk_banded,
+        }.get(self.schedule, self.solver_chunk)
         while total_iters < self.maxiter:
             chunk = min(chunk_size, self.maxiter - total_iters)
             with self.timings.phase("simultaneous_fusion"):
@@ -368,13 +372,15 @@ def _simultaneous_fusion_step(prop_stack, unary, weights, kernel, tol,
                               messages=None, use_kernel=True,
                               schedule="checkerboard", band=128):
     """One chunk of TRW-S on the K-label fusion problem, under the
-    checkerboard or the banded schedule."""
+    checkerboard, the banded or the raster-wavefront schedule."""
     D0, Q = _positions(prop_stack, normalize)  # [K, H, W], [4, K, H, W]
     extra = {}
     if schedule == "banded":
         _solve = banded.solve_banded
         H, W = unary.shape[-2:]
         extra = dict(Bh=max(2, min(band, H)), Bw=max(2, min(band, W)))
+    elif schedule == "wavefront":
+        _solve = wavefront.solve_wavefront
     else:
         _solve = trws.solve
     res = _solve(

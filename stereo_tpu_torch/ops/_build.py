@@ -30,7 +30,9 @@ NVCC_FLAGS = (
 # plain PyTorch version (see the note in each source)
 EXTRA_FLAGS = {"phase_kernel": ("-fmad=false",),
                "minplus_send": ("-fmad=false",),
-               "banded_kernel": ("-fmad=false",)}
+               "minplus_pair": ("-fmad=false",),
+               "banded_kernel": ("-fmad=false",),
+               "wavefront_kernel": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}  # name -> {"seconds", "ptxas", "path"}

@@ -6,9 +6,31 @@ R[K], weight alpha and truncation tol:
     msgA[j] = min_i ( H_A[i] + alpha * TR(|P[i] - R[j]|) )   (source = tail)
     msgB[i] = min_j ( H_B[j] + alpha * TR(|P[i] - R[j]|) )   (source = head)
 
-``minplus_pair`` (plain PyTorch, the JAX module's ``minplus_pair_xla``) is
-used by the plain full-grid phase (ops/phase_kernel.py::phase_messages_ref);
-the TPU kernel for it (``_tile_kernel``) is not ported yet (ROADMAP.md).
+``minplus_pair`` — replaces the TPU kernel
+    ``stereo_tpu/ops/minplus.py::_tile_kernel`` (``minplus_pair_pallas``).
+    Both variants of one direction, un-normalised, every term
+    ``alpha * TR(P[i] - R[j])`` evaluated once and used for both outputs.
+    CUDA tensors go through the hand-written kernel (csrc/minplus_pair.cu),
+    one launch; CPU tensors through the plain version ``minplus_pair_ref``
+    (the JAX module's ``minplus_pair_xla``), which is also what the plain
+    full-grid phase (ops/phase_kernel.py::phase_messages_ref) is made of.
+
+    What bounds it on the card: K^2 label pairs of eight float32
+    instructions per pixel (sub, abs or mul, min, mul, add, min, add, min)
+    against (4 K + 1) planes read and 2 K written; at K = 79 the operations
+    are the larger bound (PERF.md has the times).  Design: a thread block
+    owns 32 pixels, thread (x, y) holds the sources i = 8 y .. 8 y + 7 of
+    pixel x in registers with eight running minima of msgB, the block stages
+    the tile's R and H_B columns in shared memory, walks j over them in
+    chunks of eight and reduces each chunk's msgA minima over threadIdx.y in
+    shared memory.  Nothing of the TPU kernel's (K, 8, 128) tiles or its
+    padding to them is carried over: K and the plane size are runtime
+    arguments and the ragged edges are guarded by index.  Built with
+    ``-fmad=false``: float32 results equal the plain version's bit for bit.
+    Inputs must be finite (fminf drops a NaN that torch.minimum keeps); a
+    pixel whose alpha is 0 still yields finite minima.  No single PyTorch
+    call computes the function, so there is no library yardstick.
+    ``minplus_pair.launches`` counts kernel launches.
 
 ``minplus_send`` — replaces the TPU kernel
     ``stereo_tpu/ops/minplus.py::_send_kernel`` (``minplus_send_pallas``).
@@ -52,8 +74,8 @@ KT = 8
 MAX_K = 32 * KT
 
 
-def minplus_pair(H_A, H_B, P, R, alpha, tol, kernel: int):
-    """H_A/H_B/P/R: [K, H, W]; alpha: [H, W] -> (msgA, msgB), each [K, H, W]."""
+def minplus_pair_ref(H_A, H_B, P, R, alpha, tol, kernel: int):
+    """Plain PyTorch pair; same contract as ``minplus_pair``."""
     K = P.shape[0]
     msgA = []
     accB = torch.full_like(H_B, float("inf"))
@@ -86,9 +108,6 @@ def minplus_send_ref(hs, p, r, alpha, tol, kernel: int):
     return acc - vmin[..., None, :], vmin
 
 
-_lib = None
-
-
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of a built minplus_send
     library."""
@@ -98,14 +117,69 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _library():
-    """The compiled kernel, built and bound at first use."""
-    global _lib
-    if _lib is None:
+def bind_pair(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of a built minplus_pair
+    library."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.minplus_pair_f32.argtypes = (
+        [ptr] * 7 + [f32, i32, i32, ctypes.c_longlong, ptr])
+    lib.minplus_pair_f32.restype = i32
+    return lib
+
+
+_BINDERS = {"minplus_send": bind, "minplus_pair": bind_pair}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _library(name: str):
+    """The compiled kernel ``csrc/<name>.cu``, built and bound at first
+    use."""
+    if name not in _libs:
         from stereo_tpu_torch.ops import _build
 
-        _lib = bind(_build.load("minplus_send"))
-    return _lib
+        _libs[name] = _BINDERS[name](_build.load(name))
+    return _libs[name]
+
+
+def minplus_pair(H_A, H_B, P, R, alpha, tol, kernel: int):
+    """Both min-plus variants of one direction.
+
+    H_A, H_B (source heights of the two variants), P, R (positions):
+    [K, H, W]; alpha: [H, W].  Returns (msgA, msgB), each [K, H, W],
+    un-normalised.
+
+    CUDA tensors: float32, contiguous; one kernel launch on the current
+    stream, no synchronisation.  CPU tensors: the plain version."""
+    if kernel not in (1, 2):
+        raise ValueError(f"Unknown smoothness kernel {kernel!r}")
+    if not P.is_cuda:
+        return minplus_pair_ref(H_A, H_B, P, R, alpha, tol, kernel)
+    K, H, W = P.shape
+    if K > MAX_K:
+        raise ValueError(f"minplus_pair: K = {K} labels, the CUDA kernel "
+                         f"takes at most {MAX_K}")
+    dev = P.device
+    args = (("H_A", H_A, (K, H, W)), ("H_B", H_B, (K, H, W)),
+            ("P", P, (K, H, W)), ("R", R, (K, H, W)),
+            ("alpha", alpha, (H, W)))
+    for name, t, shape in args:
+        check_tensor(name, t, shape, dev)
+    lib = _library("minplus_pair")
+    msgA = torch.empty((K, H, W), dtype=torch.float32, device=dev)
+    msgB = torch.empty((K, H, W), dtype=torch.float32, device=dev)
+    if K * H * W > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.minplus_pair_f32(
+                *(t.data_ptr() for _, t, _ in args), msgA.data_ptr(),
+                msgB.data_ptr(), float(tol), int(kernel), K, H * W, stream)
+        if code != 0:
+            launch_failed("minplus_pair", code)
+        minplus_pair.launches += 1
+    return msgA, msgB
+
+
+minplus_pair.launches = 0
 
 
 def minplus_send(hs, p, r, alpha, tol, kernel: int):
@@ -136,7 +210,7 @@ def minplus_send(hs, p, r, alpha, tol, kernel: int):
     for name, t, shape in (("hs", hs, (B, K, L)), ("p", p, (B, K, L)),
                            ("r", r, (B, K, L)), ("alpha", alpha, (B, L))):
         check_tensor(name, t, shape, dev)
-    lib = _library()
+    lib = _library("minplus_send")
     msg = torch.empty((B, K, L), dtype=torch.float32, device=dev)
     vmin = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B * L > 0:

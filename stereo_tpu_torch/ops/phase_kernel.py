@@ -50,7 +50,7 @@ from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.geometry import NUM_DIRS
 from stereo_tpu_torch.ops._launch import check_tensor as _check
 from stereo_tpu_torch.ops._launch import launch_failed as _launch_failed
-from stereo_tpu_torch.ops.minplus import minplus_pair
+from stereo_tpu_torch.ops.minplus import minplus_pair_ref
 
 
 # ------------------------------------------------------------ plain versions
@@ -95,7 +95,8 @@ def phase_messages_ref(gD, gD_shifted, M, Q, D0, alphas, src_is_head, valid,
     for d in range(NUM_DIRS):
         H_A = gD_shifted[d] - M[d]
         H_B = gD - M[d]
-        msgA, msgB = minplus_pair(H_A, H_B, Q[d], D0, alphas[d], tol, kernel)
+        msgA, msgB = minplus_pair_ref(H_A, H_B, Q[d], D0, alphas[d], tol,
+                                      kernel)
         msg = torch.where(head[None], msgB, msgA)
         vmin = torch.min(msg, dim=0).values
         newM.append((msg - vmin[None]) * valid[d][None])

@@ -64,8 +64,7 @@ of ``use_kernel`` give the same messages (bit for bit in float32 on the
 card); the fused kernel's lower bound is summed in another order and agrees
 to float32 rounding.
 
-Not ported yet (ROADMAP.md): ``BandedRun(decode="raster")``, which needs the
-raster wavefront's decode; the ``stripe=`` argument of the problem, which
+Not ported yet (ROADMAP.md): the ``stripe=`` argument of the problem, which
 exists for the multi-device solver; narrow message storage.
 """
 
@@ -81,6 +80,7 @@ from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.geometry import take_plane
 from stereo_tpu_torch.ops import banded_kernel
 from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
+from stereo_tpu_torch.solvers import wavefront
 from stereo_tpu_torch.solvers.wavefront import (
     DN, GROUP_A, GROUP_B, LT, RT, UP, _send_head, _send_tail, skew, unskew)
 
@@ -690,15 +690,28 @@ class BandedRun:
         msgs = r.messages(state)                         # [4, K, H, W]
 
     ``run`` owns the state it is given: the sweeps update it in place.
+
+    ``decode="raster"`` decodes greedily under the *raster* order on this
+    state's messages (wavefront.decode_raster) instead of the banded order.
+    It is systematically worse than the banded-order decode: the greedy
+    conditioned decode is only meaningful under the ordering whose forward
+    messages it reads.  Kept as the recorded refutation of the raster-decode
+    idea; what tames the decode's oscillation is ``run``'s incumbent.
     """
 
     def __init__(self, unary, positions, nbr_positions, alphas, *, kernel,
-                 tol, Bh, Bw, use_kernel: bool = True, sweep: str = "fused"):
+                 tol, Bh, Bw, use_kernel: bool = True, sweep: str = "fused",
+                 decode: str = "banded"):
         K, H, W = unary.shape
         self.spec = BandedSpec(H, W, Bh, Bw)
         self.bp = _BandedProblem(unary, positions, nbr_positions, alphas,
                                  self.spec, kernel, tol)
         self._sweep_fn = _make_sweep_fn(self.bp, use_kernel, sweep)
+        if decode not in ("banded", "raster"):
+            raise ValueError(f"unknown decode {decode!r}")
+        self.decode = decode
+        self._inputs = (unary, positions, nbr_positions, alphas)
+        self._sk = None  # the raster decode's skewed problem, built lazily
         self.K, self.H, self.W = K, H, W
         self.dtype = unary.dtype
 
@@ -707,6 +720,16 @@ class BandedRun:
             messages = torch.zeros((4, self.K, self.H, self.W),
                                    dtype=self.dtype, device=self.bp.device)
         return messages_to_state(messages, self.bp)
+
+    def _decode(self, state):
+        if self.decode == "banded":
+            return _decode_state(self.bp, state)
+        if self._sk is None:
+            self._sk = wavefront._Skewed(*self._inputs, self.bp.kernel,
+                                         self.bp.tol)
+        msgs = state_to_messages(state, self.bp)
+        return wavefront.decode_raster(
+            self._sk, wavefront.messages_to_groups(msgs, self.W))
 
     def run(self, state, sweeps: int, decode_every: int | None = None):
         """``sweeps`` passes, decoding every ``decode_every`` sweeps (default:
@@ -725,7 +748,7 @@ class BandedRun:
         for _ in range(sweeps // decode_every):
             for _ in range(decode_every):
                 state, lb = self._sweep_fn(state)
-            labels, energy = _decode_state(bp, state)
+            labels, energy = self._decode(state)
             better = energy < bestE
             bestE = torch.where(better, energy, bestE)
             bestL = torch.where(better, labels, bestL)

@@ -100,6 +100,19 @@ def send_inputs(seed: int, B: int, K: int, L: int, dtype=np.float32):
     return tuple(np.ascontiguousarray(a.astype(dtype)) for a in out)
 
 
+def pair_inputs(seed: int, K: int, H: int, W: int, dtype=np.float32):
+    """Random inputs of ``ops.minplus.minplus_pair``: (H_A, H_B, P, R
+    [K, H, W], alpha [H, W]); alpha is 0 on the first row and column, as a
+    direction's weights are at the border."""
+    rng = np.random.default_rng(seed)
+    out = [rng.uniform(0, 2, (K, H, W)), rng.uniform(0, 2, (K, H, W)),
+           rng.uniform(-3, 3, (K, H, W)), rng.uniform(-3, 3, (K, H, W))]
+    alpha = rng.uniform(0.5, 2.0, (H, W))
+    alpha[0, :] = 0.0
+    alpha[:, 0] = 0.0
+    return tuple(np.ascontiguousarray(a.astype(dtype)) for a in out + [alpha])
+
+
 def textured_pair(seed: int, H: int, W: int, shift: int = 3,
                   noise: float = 2.0):
     """A random textured stereo pair [H, W, 3] x 2 (float64, values around

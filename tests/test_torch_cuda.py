@@ -8,6 +8,8 @@ dependencies are missing:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -16,8 +18,10 @@ from stereo_tpu_torch import testing
 from stereo_tpu_torch.ops import banded_kernel as t_bk
 from stereo_tpu_torch.ops import minplus as t_mp
 from stereo_tpu_torch.ops import phase_kernel as t_pk
+from stereo_tpu_torch.ops import wavefront_kernel as t_wfk
 from stereo_tpu_torch.solvers import banded as t_banded
 from stereo_tpu_torch.solvers import trws as t_trws
+from stereo_tpu_torch.solvers import wavefront as t_wf
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +187,99 @@ def test_banded_wrappers_raise_on_card_for_bad_input(cuda):
         t_mp.minplus_send(hs, p, r.cpu(), alpha, 1.0, 1)
     with pytest.raises(ValueError, match="kernel"):
         t_mp.minplus_send(hs, p, r, alpha, 1.0, 3)
+
+
+# ------------------------------------------- the min-plus pair kernel
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("K,H,W", [(2, 5, 9), (8, 19, 53), (15, 37, 53),
+                                   (79, 19, 53), (256, 3, 40)])  # 256: the most
+def test_pair_kernel_bitwise_on_card(cuda, K, H, W, kernel):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in testing.pair_inputs(K, K, H, W)]
+    before = t_mp.minplus_pair.launches
+    got = t_mp.minplus_pair(*args, 1.1, kernel)
+    torch.cuda.synchronize()
+    assert t_mp.minplus_pair.launches == before + 1
+    ref = t_mp.minplus_pair_ref(*args, 1.1, kernel)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+# ------------------------------------------- the raster wavefront's kernels
+def _wavefront_problem(cuda, K, H, W, kernel):
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.trws_problem(K + H, K, H, W, np.float32)]
+    sk = t_wf._Skewed(*prob, kernel, 1.0)
+    M = t_wf.messages_to_groups(torch.zeros((4, K, H, W), device=cuda), W)
+    return prob, sk, M
+
+
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("K,H,W", [
+    (3, 6, 9), (4, 7, 6), (3, 40, 9), (3, 9, 40), (3, 2, 9), (3, 9, 2),
+    (3, 1, 5), (3, 5, 1), (2, 1, 1), (15, 40, 47),
+    (128, 7, 9)])  # 128 labels: the most the kernel takes
+def test_wavefront_sweep_kernel_on_card(cuda, K, H, W, kernel):
+    """Two sweeps (zero, then warm state): messages bit for bit, the bound
+    to float32 rounding."""
+    _, sk, M = _wavefront_problem(cuda, K, H, W, kernel)
+    for _ in range(2):
+        ref, lb_ref = t_wf._sweep_steps(sk, tuple(m.clone() for m in M),
+                                        use_kernel=False)
+        before = t_wfk.sweep_wavefront.launches
+        M, lb = t_wfk.sweep_wavefront(sk, M)
+        torch.cuda.synchronize()
+        assert t_wfk.sweep_wavefront.launches == before + 1
+        assert torch.equal(M[0], ref[0]) and torch.equal(M[1], ref[1])
+        np.testing.assert_allclose(float(lb), float(lb_ref), rtol=1e-5)
+
+
+@pytest.mark.parametrize("sweep", ["fused", "steps"])
+def test_solve_wavefront_on_card_kernel_equals_plain(cuda, sweep):
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.synthetic_problem(8, 37, 53, seed=1)]
+    kw = dict(kernel=1, tol=0.02, maxiter=3, max_relgap=0.0, sweep=sweep)
+    got = t_wf.solve_wavefront(*prob, **kw)
+    ref = t_wf.solve_wavefront(*prob, **kw, use_kernel=False)
+    assert torch.equal(got.labels, ref.labels)
+    assert torch.equal(got.messages, ref.messages)
+    assert float(got.lower_bound) <= float(got.energy)
+
+
+def test_wavefront_and_pair_wrappers_raise_on_card_for_bad_input(cuda):
+    _, sk, (MA, MB) = _wavefront_problem(cuda, 3, 6, 9, 1)
+    with pytest.raises(ValueError, match="expected"):
+        t_wfk.sweep_wavefront(sk, (MA.cpu(), MB))  # a CPU tensor
+    with pytest.raises(ValueError, match="float32"):
+        t_wfk.sweep_wavefront(sk, (MA.double(), MB))
+    with pytest.raises(ValueError, match="shape"):
+        t_wfk.sweep_wavefront(sk, (MA[:-1].contiguous(), MB))
+    with pytest.raises(ValueError, match="contiguous"):
+        t_wfk.sweep_wavefront(
+            sk, (MA, MB.transpose(2, 3).contiguous().transpose(2, 3)))
+    _, wide, wide_M = _wavefront_problem(cuda, t_wfk.MAX_K + 1, 4, 5, 1)
+    with pytest.raises(ValueError, match="at most"):
+        t_wfk.sweep_wavefront(wide, wide_M)
+    # no pixel, T = 0: such a problem cannot be built, so a stand-in
+    empty = types.SimpleNamespace(theta=MA, K=3, H=0, W=1, T=0, device=cuda)
+    with pytest.raises(ValueError, match="at least"):
+        t_wfk.sweep_wavefront(empty, (MA, MB))
+    args = [torch.as_tensor(a, device=cuda)
+            for a in testing.pair_inputs(0, 3, 4, 5)]
+    bad = list(args)
+    bad[2] = bad[2].double()
+    with pytest.raises(ValueError, match="float32"):
+        t_mp.minplus_pair(*bad, 1.0, 1)
+    bad = list(args)
+    bad[4] = bad[4].cpu()
+    with pytest.raises(ValueError, match="expected"):
+        t_mp.minplus_pair(*bad, 1.0, 1)
+    bad = list(args)
+    bad[0] = bad[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_mp.minplus_pair(*bad, 1.0, 1)
+    with pytest.raises(ValueError, match="kernel"):
+        t_mp.minplus_pair(*args, 1.0, 3)
+    wide = [torch.zeros((t_mp.MAX_K + 1, 2, 3), device=cuda)] * 4
+    with pytest.raises(ValueError, match="at most"):
+        t_mp.minplus_pair(*wide, torch.zeros((2, 3), device=cuda), 1.0, 1)

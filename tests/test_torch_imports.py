@@ -38,7 +38,9 @@ def test_files_found():
     for must in ("stereo_tpu_torch/solvers/trws.py",
                  "stereo_tpu_torch/solvers/banded.py",
                  "stereo_tpu_torch/solvers/wavefront.py",
+                 "stereo_tpu_torch/solvers/hierarchy.py",
                  "stereo_tpu_torch/ops/banded_kernel.py",
+                 "stereo_tpu_torch/ops/wavefront_kernel.py",
                  "stereo_tpu_torch/ops/minplus.py",
                  "stereo_tpu_torch/ops/phase_kernel.py",
                  "stereo_tpu_torch/models/ncc.py", "chip_smoke.py"):
@@ -69,7 +71,7 @@ def test_default_device_raises_without_card():
     _skip_if_card()
     from stereo_tpu_torch import convert, energy, geometry, testing
     from stereo_tpu_torch.models.ncc import DispMapNCC
-    from stereo_tpu_torch.solvers import banded, trws
+    from stereo_tpu_torch.solvers import banded, trws, wavefront
 
     with pytest.raises(RuntimeError, match="cuda"):
         geometry.fronto_parallel(4, 5, 1.0)
@@ -95,6 +97,13 @@ def test_default_device_raises_without_card():
              (np.zeros((3, 4)),) * 4)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.banded_state_from_numpy(state)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.wavefront_groups_from_numpy(state[:2])
+    with pytest.raises(RuntimeError, match="cuda"):
+        wavefront.raster_gamma(4, 5)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DispMapNCC([im0, im1], np.arange(4), kernel=1, unary_weight=40.0,
+                   tol=8.0, schedule="wavefront")
     # asked for explicitly, the CPU is fine
     assert geometry.fronto_parallel(4, 5, 1.0, device="cpu").shape == (4, 4, 5)
 
@@ -106,17 +115,22 @@ def test_unported_options_raise():
 
     im0, im1 = testing.textured_pair(0, 12, 16)
     kw = dict(kernel=1, unary_weight=40.0, tol=8.0, device="cpu")
-    for schedule in ("wavefront", "scanline"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DispMapNCC([im0, im1], np.arange(4), schedule=schedule, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DispMapNCC([im0, im1], np.arange(4), schedule="scanline", **kw)
     with pytest.raises(ValueError):
         DispMapNCC([im0, im1], np.arange(4), schedule="zigzag", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DispMapNCC([im0, im1], np.arange(4), fusion_backend="host", **kw)
     dm = DispMapNCC([im0, im1], np.arange(4), **kw)
-    dm.schedule = "wavefront"
+    dm.schedule = "scanline"
     with pytest.raises(NotImplementedError):
         dm.simultaneous_fusion([dm.assignment])
+    # the wavefront schedule constructs and solves
+    dm = DispMapNCC([im0, im1], np.arange(4), schedule="wavefront",
+                    maxiter=2, **kw)
+    assert dm.schedule == "wavefront" and dm.solver_chunk_wavefront == 150
+    e, lb, iters = dm.simultaneous_fusion([dm.assignment])
+    assert iters > 0 and np.isfinite([e, lb]).all() and lb <= e + 1e-9
     t = [torch.as_tensor(a) for a in testing.trws_problem(0, 3, 4, 5)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trws.solve(*t, kernel=1, tol=1.0, message_dtype=torch.bfloat16)
@@ -163,6 +177,8 @@ def test_banded_wrappers_refuse_what_the_kernels_do_not_take():
     assert shapes["vSyD"] == shapes["PyU_a"] == (spec.Lp,)
     assert minplus.MAX_K == 256 and banded_kernel.MAX_K == 96
     assert banded_kernel.LB_SLOTS == 9
+    with pytest.raises(RuntimeError, match="refused"):
+        _launch.launch_failed("sweep_wavefront", 720)
 
 
 def test_build_digest_covers_shared_headers(tmp_path):
@@ -189,8 +205,9 @@ def test_build_digest_covers_shared_headers(tmp_path):
     assert target("other")[1] == other2  # another source's bytes do not count
     (csrc / "second.cuh").write_text("")
     assert target("other")[1] != other2
-    # the package's own three sources are all built without FMA contraction
-    assert _build.sources() == ["banded_kernel", "minplus_send",
-                                "phase_kernel"]
+    # the package's own five sources are all built without FMA contraction
+    assert _build.sources() == ["banded_kernel", "minplus_pair",
+                                "minplus_send", "phase_kernel",
+                                "wavefront_kernel"]
     for name in _build.sources():
         assert "-fmad=false" in _build._target(name)[2]

@@ -1,8 +1,9 @@
 """The slice as a whole: the same textured random pair and the same
 proposals through stereo_tpu.models.ncc.DispMapNCC and the port's, on the
 CPU in float64.  Binary fusion sweep: energy trace rtol 1e-9, assignment
-equal; simultaneous fusion (checkerboard, and banded with 8 x 8 blocks): (E, lb,
-iters) rtol 1e-9, labels (the resulting plane field) equal."""
+equal; simultaneous fusion (checkerboard, banded with 8 x 8 blocks, and the
+raster wavefront): (E, lb, iters) rtol 1e-9, labels (the resulting plane
+field) equal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,13 +139,46 @@ def test_simultaneous_fusion_banded_schedule(models):
                      device="cpu")
     assert dm.schedule == "banded" and dm.band == 128
     assert dm.solver_chunk_banded == 400
-    for schedule in ("wavefront", "scanline"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule=schedule,
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="scanline",
+                    device="cpu")
+    dm = TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="wavefront",
+                     device="cpu")
+    assert dm.schedule == "wavefront" and dm.solver_chunk_wavefront == 150
     with pytest.raises(ValueError):
         TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="zigzag",
                     device="cpu")
+
+
+def test_simultaneous_fusion_wavefront_schedule(models):
+    """schedule="wavefront": the port's model against the JAX model, from a
+    shared assignment and proposals."""
+    jm, tm, _, _ = models
+    jp, tp = _shared_proposals(models)
+    _restart_both(jm, tm)
+    jm.schedule = tm.schedule = "wavefront"
+    jm.maxiter = tm.maxiter = 8
+    try:
+        jE, jlb, jit = jm.simultaneous_fusion(jp)
+        tE, tlb, tit = tm.simultaneous_fusion(tp)
+        assert tit == jit
+        np.testing.assert_allclose([tE, tlb], [jE, jlb], rtol=1e-9)
+        assert tlb <= tE
+        np.testing.assert_array_equal(tm.assignment.numpy(),
+                                      np.asarray(jm.assignment))
+        tm.assignment = tm.assignment
+        np.testing.assert_allclose(tm.energy(), tE, rtol=1e-9)
+        # chunked driving warm-starts the messages: same trajectory
+        tm.restart()
+        tm.assignment = np.asarray(_restart_jax(jm))
+        tm.solver_chunk_wavefront = 4
+        chunked = tm.simultaneous_fusion(tp)
+        np.testing.assert_allclose(chunked[:2], [tE, tlb], rtol=1e-9)
+        assert chunked[2] == tit
+    finally:
+        jm.schedule = tm.schedule = "checkerboard"
+        jm.maxiter = tm.maxiter = KW["maxiter"]
+        tm.solver_chunk_wavefront = 150
 
 
 def _restart_jax(jm):

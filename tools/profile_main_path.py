@@ -2,11 +2,12 @@
 binary fusion moves and a few sweeps of simultaneous fusion on teddy K = 79.
 
     python3 tools/profile_main_path.py [--moves 3] [--sweeps 16]
-                                       [--schedule checkerboard|banded]
+                                       [--schedule checkerboard|banded|wavefront]
 
 ``--schedule`` picks the TRW-S schedule of the simultaneous-fusion window
 (checkerboard: two launches of the compact phase kernel per sweep; banded:
-one launch of the fused banded sweep kernel per sweep, 128 x 128 blocks).
+one launch of the fused banded sweep kernel per sweep, 128 x 128 blocks;
+wavefront: one launch of the fused raster-order sweep kernel per sweep).
 For each of the two windows it prints one JSON line: host seconds (around a
 synchronise), the sum of the device kernels' time, the device's busy share
 (kernel time over host time), the number of kernel launches, and the kernels
@@ -73,7 +74,7 @@ def main():
     ap.add_argument("--moves", type=int, default=3)
     ap.add_argument("--sweeps", type=int, default=16)
     ap.add_argument("--schedule", default="checkerboard",
-                    choices=["checkerboard", "banded"])
+                    choices=["checkerboard", "banded", "wavefront"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
