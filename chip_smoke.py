@@ -9,14 +9,17 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
   2. holds each kernel against its plain PyTorch version on the card, bit for
      bit: the two phase kernels for kernel in {1, 2}, K in {2, 8, 15, 79},
      37x53 and 375x450 (odd H, ragged edges, border pixels with valid =
-     alpha = 0); the column send for K in {2, 8, 15, 79} x kernel x L in
-     {53, 1536} x batch in {1, 2}; the fused banded sweep on seven problems
-     up to teddy K = 79 with 128 x 128 blocks, one sweep from zero messages
-     and one from the warm state (messages and seam arrays bit for bit, the
-     lower bound to rtol 1e-5); the min-plus pair for K in {2, 8, 15, 79} x
-     kernel x {37x53, 375x450} (border pixels with alpha = 0); the fused
-     raster-wavefront sweep on nine problems up to teddy K = 79 and up to the
-     kernel's limit of 96 labels, the same two sweeps;
+     alpha = 0); the column send for K in {2, 8, 15, 79, 300} x kernel x L
+     in {53, 1536} x batch in {1, 2}, and K = 1000 (staged in global
+     scratch; L = 53 and L = 64,000, more tiles than resident blocks); the
+     fused banded sweep on twelve problems up to teddy K = 79 and K = 202
+     with 128 x 128 blocks and K in {97, 202, 300, 1000}, one sweep from
+     zero messages and one from the warm state (messages and seam arrays bit
+     for bit, the lower bound to rtol 1e-5); the min-plus pair for K in {2,
+     8, 15, 79, 300} x kernel x {37x53, 375x450} and K = 1000 on 37x53 and
+     200x320 (border pixels with alpha = 0); the fused raster-wavefront
+     sweep on fourteen problems up to teddy K = 79 and K = 202 and K in
+     {97, 128, 202, 300, 1000}, the same two sweeps;
   3. drives the main path at full width: DispMapNCC on data/teddy (375x450,
      51 disparities), 72 RANSAC + 6 fronto-parallel proposals, binary fusion
      sweep over all 78, restart, simultaneous fusion over K = 79 labels with
@@ -41,8 +44,17 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      the plain version;
   9. drives solve_wavefront(sweep="steps") at the same size through the
      column send kernel and compares with the fused sweep;
- 10. times every kernel at the teddy K = 79 shape (CUDA events) beside its
-     plain version and its byte / operation bounds, and prints the
+ 10. drives DispMapNCC simultaneous fusion at teddy's --grid-step 30
+     proposals (K = 202, beyond one pass of a block's targets) on the banded
+     and the wavefront schedules, 8 sweeps and one decode each, through
+     kernels 5 and 6, and checks lb <= E; then repeats the first two sweeps
+     through the plain version and compares labels and energy;
+ 11. runs the fused banded sweep twice from one warm state at teddy K = 79
+     and checks that both give the same bits (a race between the ready
+     flags and the reads they guard would differ);
+ 12. times every kernel at the teddy K = 79 shape (CUDA events) beside its
+     plain version and its byte / operation bounds (the fused sweeps also at
+     K = 15 and K = 202, beside their plain versions), and prints the
      ``{"kernels": [...]}`` line.
 
 Every phase prints one JSON line; any failed check raises, so the exit code
@@ -128,16 +140,34 @@ KERNELS = {
         replaces="stereo_tpu/ops/wavefront_kernel.py:179"),
 }
 # (K, H, W, Bh, Bw) of the fused sweep's comparisons: ragged rows and
-# columns, Bh != Bw both ways (Lp > L), up to the main path's own shape
+# columns, Bh != Bw both ways (Lp > L), up to the main path's own shape; K
+# beyond one pass of targets (97, 202, 300; 202 also at teddy's shape, as the
+# K = 202 phase runs it) and beyond shared memory's staging (1000, staged in
+# global scratch)
 BANDED_CASES = ((3, 8, 10, 4, 5), (4, 9, 8, 4, 4), (3, 10, 11, 5, 4),
                 (8, 48, 40, 8, 8), (15, 40, 47, 8, 16), (15, 96, 128, 32, 32),
-                (79, 375, 450, BAND, BAND))
+                (79, 375, 450, BAND, BAND), (97, 48, 40, 8, 8),
+                (202, 10, 11, 5, 4), (202, 375, 450, BAND, BAND),
+                (300, 40, 47, 8, 16), (1000, 8, 10, 4, 5))
 # (K, H, W) of the wavefront sweep's comparisons: the two shapes of the JAX
 # package's own kernel test, H > W and W > H beyond one tile of lanes, two
-# rows, two columns, K = 15, K at the kernel's limit, the main path's shape
+# rows, two columns, K = 15, the main path's shape, and K beyond one pass of
+# targets (97, 128, 202, 300; 202 also at teddy's shape) and beyond shared
+# memory's staging (1000)
 WAVEFRONT_CASES = ((3, 6, 9), (4, 7, 6), (3, 40, 9), (3, 9, 40), (3, 2, 9),
-                   (3, 9, 2), (15, 40, 47), (wavefront_kernel.MAX_K, 7, 9),
-                   FULL)
+                   (3, 9, 2), (15, 40, 47), FULL, (97, 7, 9), (128, 7, 9),
+                   (202, 9, 40), (202, 375, 450), (300, 40, 9), (1000, 7, 9))
+# the send and pair kernels' comparisons: K in one pass, in several, and
+# staged in global scratch, there with more jobs (tiles of 32 lanes or
+# pixels) than blocks resident at once (at most 5 blocks of 384 threads on
+# each of 132 multiprocessors), so that a block walks several of them
+SEND_PAIR_K = (2, 8, 15, 79, 300)
+GLOBAL_STAGE_K = 1000
+GLOBAL_STAGE_JOBS = 2000
+# teddy at --grid-step 30: 196 RANSAC + 6 fronto-parallel proposals
+GRID_STEP_WIDE, K_WIDE = 30, 202
+WIDE_SWEEPS = 8
+PLAIN_SWEEPS_WIDE = 2
 
 
 def check(ok, what: str):
@@ -164,11 +194,16 @@ def on_card(inp: dict, names) -> list:
 
 
 # ------------------------------------------------------------ 1. build
-def phase_device_and_build():
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device_and_build():
+    smi = nvidia_smi()
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
@@ -245,25 +280,27 @@ def phase_kernels_vs_plain() -> dict:
 def pair_vs_plain(err: dict) -> int:
     """The min-plus pair kernel against minplus_pair_ref, bit for bit."""
     cases = 0
-    for (H, W) in ((37, 53), (375, 450)):
-        for K in (2, 8, 15, 79):
-            for kernel in (1, 2):
-                args = [torch.as_tensor(a, device=DEV)
-                        for a in testing.pair_inputs(K + H + kernel, K, H, W)]
-                tol = 1.1 if kernel == 1 else 0.9
-                got = minplus.minplus_pair(*args, tol, kernel)
-                torch.cuda.synchronize()
-                ref = minplus.minplus_pair_ref(*args, tol, kernel)
-                for g, r, what in zip(got, ref, ("msgA", "msgB")):
-                    err["minplus_pair"] = max(err["minplus_pair"],
-                                              float((g - r).abs().max()))
-                    check(torch.equal(g, r),
-                          f"pair kernel != plain version ({what}, K={K}, "
-                          f"{H}x{W}, kernel={kernel})")
-                    check(bool(torch.isfinite(g).all()),
-                          f"pair kernel: non-finite {what}")
-                cases += 1
-                del args, got, ref
+    shapes = [((37, 53), K) for K in SEND_PAIR_K + (GLOBAL_STAGE_K,)]
+    shapes += [((375, 450), K) for K in SEND_PAIR_K]
+    shapes += [((200, GLOBAL_STAGE_JOBS * 32 // 200), GLOBAL_STAGE_K)]
+    for (H, W), K in shapes:
+        for kernel in (1, 2):
+            args = [torch.as_tensor(a, device=DEV)
+                    for a in testing.pair_inputs(K + H + kernel, K, H, W)]
+            tol = 1.1 if kernel == 1 else 0.9
+            got = minplus.minplus_pair(*args, tol, kernel)
+            torch.cuda.synchronize()
+            ref = minplus.minplus_pair_ref(*args, tol, kernel)
+            for g, r, what in zip(got, ref, ("msgA", "msgB")):
+                err["minplus_pair"] = max(err["minplus_pair"],
+                                          float((g - r).abs().max()))
+                check(torch.equal(g, r),
+                      f"pair kernel != plain version ({what}, K={K}, "
+                      f"{H}x{W}, kernel={kernel})")
+                check(bool(torch.isfinite(g).all()),
+                      f"pair kernel: non-finite {what}")
+            cases += 1
+            del args, got, ref
         torch.cuda.empty_cache()
     return cases
 
@@ -303,23 +340,26 @@ def wavefront_sweep_vs_plain(err: dict) -> int:
 def send_vs_plain(err: dict) -> int:
     """The column send kernel against minplus_send_ref, bit for bit."""
     cases = 0
-    for K in (2, 8, 15, 79):
+    shapes = [(K, L, B) for K in SEND_PAIR_K for L in (53, 1536)
+              for B in (1, 2)] + [(GLOBAL_STAGE_K, 53, 1),
+                                  (GLOBAL_STAGE_K, GLOBAL_STAGE_JOBS * 32, 1)]
+    for K, L, B in shapes:
         for kernel in (1, 2):
-            for L in (53, 1536):
-                for B in (1, 2):
-                    args = [torch.as_tensor(a, device=DEV) for a in
-                            testing.send_inputs(K + L + B, B, K, L)]
-                    tol = 1.1 if kernel == 1 else 0.9
-                    got = minplus.minplus_send(*args, tol, kernel)
-                    torch.cuda.synchronize()
-                    ref = minplus.minplus_send_ref(*args, tol, kernel)
-                    for g, r, what in zip(got, ref, ("msg", "vmin")):
-                        err["minplus_send"] = max(err["minplus_send"],
-                                                  float((g - r).abs().max()))
-                        check(torch.equal(g, r),
-                              f"send kernel != plain version ({what}, K={K}, "
-                              f"L={L}, B={B}, kernel={kernel})")
-                    cases += 1
+            args = [torch.as_tensor(a, device=DEV) for a in
+                    testing.send_inputs(K + L + B, B, K, L)]
+            tol = 1.1 if kernel == 1 else 0.9
+            got = minplus.minplus_send(*args, tol, kernel)
+            torch.cuda.synchronize()
+            ref = send_ref_by_lanes(*args, tol, kernel)
+            for g, r, what in zip(got, ref, ("msg", "vmin")):
+                err["minplus_send"] = max(err["minplus_send"],
+                                          float((g - r).abs().max()))
+                check(torch.equal(g, r),
+                      f"send kernel != plain version ({what}, K={K}, "
+                      f"L={L}, B={B}, kernel={kernel})")
+            cases += 1
+            del args, got, ref
+        torch.cuda.empty_cache()
     # head- and tail-send operand order with broadcast leading axes, as
     # solvers/banded.py calls it
     hs, p, r, alpha = [torch.as_tensor(a, device=DEV)
@@ -330,6 +370,18 @@ def send_vs_plain(err: dict) -> int:
         check(all(torch.equal(g, r_) for g, r_ in zip(got, ref)),
               "send kernel != plain version (broadcast batch)")
     return cases + 2
+
+
+def send_ref_by_lanes(hs, p, r, alpha, tol, kernel, lanes: int = 256):
+    """minplus_send_ref over slices of the lanes (each lane's send is its
+    own): the plain version's dense [B, K, K, L] tensor of one call would
+    not fit the card at K = 1000 and many lanes."""
+    parts = [minplus.minplus_send_ref(hs[..., i:i + lanes],
+                                      p[..., i:i + lanes],
+                                      r[..., i:i + lanes],
+                                      alpha[..., i:i + lanes], tol, kernel)
+             for i in range(0, hs.shape[-1], lanes)]
+    return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
 
 
 def clone_state(state):
@@ -756,6 +808,70 @@ def phase_wavefront_steps_path() -> dict:
     return counts
 
 
+# ------------------------------ 10. teddy at K = 202 on both fused schedules
+def phase_wide_k():
+    """DispMapNCC simultaneous fusion over teddy's --grid-step 30 proposals
+    (K = 202, beyond one pass of targets) on the banded and the wavefront
+    schedule: 8 sweeps and one decode each, through kernels 5 and 6; then
+    the first sweeps again through the kernels and through the plain
+    version, which must give the same labels and energy."""
+    pair = io.load_pair(PAIR, dtype=np.float32)
+    disparities = np.arange(0, MAX_DISP + 1)
+    dm = DispMapNCC(pair.images, disparities, kernel=1, unary_weight=40.0,
+                    tol=8.0 * (disparities[1] - disparities[0]),
+                    maxiter=WIDE_SWEEPS, check_every=WIDE_SWEEPS, device=DEV)
+    proposals = grid_proposals(dm, GRID_STEP_WIDE, MAX_DISP)
+    check(len(proposals) + 1 == K_WIDE,
+          f"--grid-step {GRID_STEP_WIDE} gave K = {len(proposals) + 1}")
+    runs = {}
+    for schedule, name in (("banded", "sweep_banded"),
+                           ("wavefront", "sweep_wavefront")):
+        dm.restart()
+        dm.schedule, dm.band = schedule, BAND
+        dm.solver_chunk_banded = dm.solver_chunk_wavefront = WIDE_SWEEPS
+        reset_counts()
+        t0 = time.perf_counter()
+        e, lb, iters = dm.simultaneous_fusion(proposals)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts()[name]
+        check(np.isfinite([e, lb]).all() and lb <= e,
+              f"{schedule} at K = {K_WIDE}: lb {lb} > E {e}")
+        check(iters == WIDE_SWEEPS and launches == WIDE_SWEEPS,
+              f"{schedule} at K = {K_WIDE}: {launches} launches of {name} "
+              f"in {iters} sweeps")
+        runs[schedule] = dict(energy=e, lower_bound=lb, sweeps=iters,
+                              seconds=secs, launches=launches)
+        # the first sweeps (one from zero messages, one warm) through the
+        # kernel and through its plain version, on the card
+        out = {}
+        dm.maxiter = dm.check_every = PLAIN_SWEEPS_WIDE
+        for use_kernel in (True, False):
+            dm.restart()
+            dm.use_kernel = use_kernel
+            t0 = time.perf_counter()
+            e2, lb2, it2 = dm.simultaneous_fusion(proposals)
+            out[use_kernel] = (e2, lb2, it2, dm.assignment.clone(),
+                               time.perf_counter() - t0)
+        dm.use_kernel, dm.maxiter = True, WIDE_SWEEPS
+        dm.check_every = WIDE_SWEEPS
+        (ek, lbk, itk, ak, tk), (ep, lbp, _, ap, tp) = out[True], out[False]
+        check(itk == PLAIN_SWEEPS_WIDE and torch.equal(ak, ap) and ek == ep
+              and abs(lbk - lbp) <= 1e-5 * abs(lbp),
+              f"{schedule} at K = {K_WIDE}, kernel vs plain version after "
+              f"{PLAIN_SWEEPS_WIDE} sweeps: E {ek} vs {ep}, lb {lbk} vs "
+              f"{lbp}, labels equal {torch.equal(ak, ap)}")
+        runs[schedule]["vs_plain"] = dict(
+            sweeps=PLAIN_SWEEPS_WIDE, energy=ek, lower_bound=lbk,
+            plain_lower_bound=lbp, labels_equal=True, kernel_seconds=tk,
+            plain_seconds=tp)
+        del out, ak, ap
+    say("wide_k", K=K_WIDE, grid_step=GRID_STEP_WIDE, size=list(dm.sz),
+        **runs)
+    del dm, proposals
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------- 4. full-grid kernel on a path
 def phase_full_grid_path() -> dict:
     results = []
@@ -879,11 +995,13 @@ def pair_bounds(K: int, pixels: int) -> dict:
                     K * K * pixels * OPS_PER_PAIR_STEP)
 
 
-def time_wavefront_sweep(K: int, H: int, W: int, reps: int) -> dict:
-    """ms per sweep of the fused wavefront kernel and of its plain version on
-    a synthetic problem of the given shape; the sweeps follow one another on
-    one state (a sweep's work does not depend on the data).  The work is a
-    banded sweep's (8 sends per pixel, the same arrays), hence its bounds."""
+def time_wavefront_sweep(K: int, H: int, W: int, reps: int,
+                         plain: bool = True) -> dict:
+    """ms per sweep of the fused wavefront kernel and (``plain``) of its
+    plain version on a synthetic problem of the given shape; the sweeps
+    follow one another on one state (a sweep's work does not depend on the
+    data).  The work is a banded sweep's (8 sends per pixel, the same
+    arrays), hence its bounds."""
     prob = [torch.as_tensor(a, device=DEV)
             for a in testing.synthetic_problem(K, H, W)]
     sk = wavefront._Skewed(*prob, 1, 8.0)
@@ -898,9 +1016,9 @@ def time_wavefront_sweep(K: int, H: int, W: int, reps: int) -> dict:
         state[0], _ = wavefront._sweep_steps(sk, state[0], use_kernel=False)
 
     ms = time_ms(kernel_sweep, reps)
-    plain = time_ms(plain_sweep, 2, warmup=0)
+    plain_ms = time_ms(plain_sweep, 2, warmup=0) if plain else None
     T = H + W - 1
-    row = dict(ms=ms, plain_ms=plain, us_per_step=ms * 1e3 / (2 * T),
+    row = dict(ms=ms, plain_ms=plain_ms, us_per_step=ms * 1e3 / (2 * T),
                shape=dict(K=K, H=H, W=W, T=T, steps=2 * T),
                **sweep_bounds(K, H * W))
     del sk, state
@@ -908,10 +1026,12 @@ def time_wavefront_sweep(K: int, H: int, W: int, reps: int) -> dict:
     return row
 
 
-def time_banded_sweep(K: int, H: int, W: int, reps: int) -> dict:
-    """ms per sweep of the fused kernel and of its plain version on a
-    synthetic problem of the given shape, 128 x 128 blocks; the sweeps follow
-    one another on one state (a sweep's work does not depend on the data)."""
+def time_banded_sweep(K: int, H: int, W: int, reps: int,
+                      plain: bool = True) -> dict:
+    """ms per sweep of the fused kernel and (``plain``) of its plain version
+    on a synthetic problem of the given shape, 128 x 128 blocks; the sweeps
+    follow one another on one state (a sweep's work does not depend on the
+    data)."""
     prob = [torch.as_tensor(a, device=DEV)
             for a in testing.synthetic_problem(K, H, W)]
     spec = banded.BandedSpec(H, W, min(BAND, H), min(BAND, W))
@@ -927,14 +1047,41 @@ def time_banded_sweep(K: int, H: int, W: int, reps: int) -> dict:
         state[0], _ = banded._sweep_steps(bp, state[0], use_kernel=False)
 
     ms = time_ms(kernel_sweep, reps)
-    plain = time_ms(plain_sweep, 2, warmup=0)
-    row = dict(ms=ms, plain_ms=plain,
+    plain_ms = time_ms(plain_sweep, 2, warmup=0) if plain else None
+    row = dict(ms=ms, plain_ms=plain_ms, us_per_step=ms * 1e3 / (2 * spec.T),
                shape=dict(K=K, H=H, W=W, Bh=spec.Bh, Bw=spec.Bw, T=spec.T,
                           L=spec.L),
                **sweep_bounds(K, H * W))
     del bp, state
     torch.cuda.empty_cache()
     return row
+
+
+def banded_sweep_repeatable(K: int = 79, H: int = 375, W: int = 450):
+    """Two fused sweeps at teddy's shape from one warm state give the same
+    bits (state and bound): a race between the ready flags and the reads
+    they guard would show as a difference."""
+    prob = [torch.as_tensor(a, device=DEV)
+            for a in testing.synthetic_problem(K, H, W)]
+    spec = banded.BandedSpec(H, W, BAND, BAND)
+    bp = banded._BandedProblem(*prob, spec, 1, 8.0)
+    del prob
+    state, _ = banded_kernel.sweep_banded(bp, banded.messages_to_state(
+        torch.zeros((4, K, H, W), device=DEV), bp))
+    runs = []
+    for _ in range(2):
+        out, lb = banded_kernel.sweep_banded(bp, clone_state(state))
+        torch.cuda.synchronize()
+        runs.append((state_tensors(out), float(lb)))
+    (a, lb_a), (b, lb_b) = runs
+    for name in a:
+        check(torch.equal(a[name], b[name]),
+              f"two fused sweeps from one state differ ({name})")
+    check(lb_a == lb_b, f"two fused sweeps' bounds differ: {lb_a} {lb_b}")
+    say("banded_repeatable", K=K, size=[H, W], runs=2, lower_bound=lb_a,
+        equal="bitwise (state and bound)")
+    del bp, state, runs, a, b
+    torch.cuda.empty_cache()
 
 
 def phase_timings(launches: dict, err: dict) -> list:
@@ -978,9 +1125,11 @@ def phase_timings(launches: dict, err: dict) -> list:
                      **send_bounds(B, K, L)))
     del args
     # the fused sweep at the main path's shape, and at K = 15 on 370 x 413
-    # (the shape of the baby2 pair; synthetic data) for the record
+    # (the shape of the baby2 pair; synthetic data) for the record, and at
+    # teddy's K = 202 (--grid-step 30)
     rows.append(dict(name="sweep_banded", **time_banded_sweep(K, H, W, 12)))
     say("sweep_banded_k15", **time_banded_sweep(15, 370, 413, 12))
+    say("sweep_banded_k202", **time_banded_sweep(K_WIDE, H, W, 4))
     # the pair at the shape one direction of a full-grid phase gives it
     args = [torch.as_tensor(a, device=DEV)
             for a in testing.pair_inputs(1, K, H, W)]
@@ -996,6 +1145,7 @@ def phase_timings(launches: dict, err: dict) -> list:
     rows.append(dict(name="sweep_wavefront",
                      **time_wavefront_sweep(K, H, W, 6)))
     say("sweep_wavefront_k15", **time_wavefront_sweep(15, 370, 413, 6))
+    say("sweep_wavefront_k202", **time_wavefront_sweep(K_WIDE, H, W, 2))
     for r in rows:
         meta = KERNELS[r["name"]]
         r.update(route=meta["route"], source=meta["source"],
@@ -1028,6 +1178,8 @@ def main():
     steps_counts = phase_steps_path()
     wavefront_steps_counts = phase_wavefront_steps_path()
     pair_counts = phase_pair_path()
+    phase_wide_k()
+    banded_sweep_repeatable()
     launches = {
         "phase_messages_compact": main_counts["phase_messages_compact"],
         "phase_messages": full_counts["phase_messages"],

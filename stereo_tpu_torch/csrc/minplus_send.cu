@@ -17,9 +17,11 @@
 // against (4 K + 2) planes of traffic; at the sizes a sweep step gives it
 // (a few [K, L] columns with L ~ 1500) both bounds are under a microsecond
 // and the launch latency is what one measures.  The design is the shared
-// cooperative send (minplus.cuh): a block of 32 x ceil(K / 8) threads per
-// tile of 32 lanes, the sources staged in shared memory, the whole leading
-// batch in one launch (blockIdx.y).
+// cooperative send (minplus.cuh): a block of 32 x target_blocks(K) threads
+// (at most 12 warps; more than 96 labels take several passes over the
+// targets) per tile of 32 lanes, the sources staged in shared memory (in
+// global scratch when K is too large for it), the whole leading batch in one
+// launch.  It takes every K.
 
 #include "minplus.cuh"
 
@@ -27,47 +29,76 @@ namespace {
 
 using namespace minplus;
 
-template <int KERNEL>
+template <int KERNEL, bool SMEM>
 __global__ void minplus_send_kernel(const float* __restrict__ hs,     // [B,K,L]
                                     const float* __restrict__ p,      // [B,K,L]
                                     const float* __restrict__ r,      // [B,K,L]
                                     const float* __restrict__ alpha,  // [B,L]
                                     float* __restrict__ msg,          // [B,K,L]
                                     float* __restrict__ vmin,         // [B,L]
-                                    float tol, int K, int L) {
+                                    float tol, int B, int K, int L,
+                                    float* gstage) {
   __shared__ float sm[MAX_TB][TILE];
-  extern __shared__ float stage[];
-  int l = blockIdx.x * TILE + threadIdx.x;
-  bool active = l < L;
-  long long bk = (long long)blockIdx.y * K * L + l;  // into a [B, K, L] array
-  long long bl = (long long)blockIdx.y * L + l;      // into a [B, L] array
-  float a = active ? alpha[bl] : 0.0f;
-  float v = send_lane<KERNEL, false>(active, hs + bk, L, nullptr, 0, p + bk,
-                                     L, r + bk, L, a, tol, K, msg + bk, L,
-                                     sm, stage);
-  if (active && threadIdx.y == 0) vmin[bl] = v;
+  extern __shared__ float smem_stage[];
+  float* stage = SMEM ? smem_stage
+                      : gstage + (long long)blockIdx.x * stage_floats(K);
+  // job = (batch entry, tile of 32 lanes); one job a block in shared memory,
+  // a stride of them in scratch (plan_stage bounds that grid)
+  const int per_b = (L + TILE - 1) / TILE;
+  for (long long job = blockIdx.x; job < (long long)B * per_b;
+       job += gridDim.x) {
+    const long long b = job / per_b;
+    const int l = (int)(job % per_b) * TILE + threadIdx.x;
+    const bool active = l < L;
+    const long long bk = b * K * L + l;  // into a [B, K, L] array
+    const long long bl = b * L + l;      // into a [B, L] array
+    const float a = active ? alpha[bl] : 0.0f;
+    const float v = send_lane<KERNEL, false, SMEM>(
+        active, active, hs + bk, L, nullptr, 0, p + bk, L, r + bk, L, a, tol,
+        K, msg + bk, L, sm, stage);
+    if (active && threadIdx.y == 0) vmin[bl] = v;
+    if constexpr (SMEM) break;  // the grid covers the jobs: no loop
+  }
+}
+
+template <int KERNEL>
+cudaError_t launch(const float* hs, const float* p, const float* r,
+                   const float* alpha, float* msg, float* vmin, float tol,
+                   int B, int K, int L, float* scratch,
+                   long long scratch_floats, long long* need,
+                   cudaStream_t st) {
+  dim3 block(TILE, target_blocks(K));
+  StagePlan plan;
+  cudaError_t err = plan_stage(
+      (const void*)minplus_send_kernel<KERNEL, true>,
+      (const void*)minplus_send_kernel<KERNEL, false>, 0, K,
+      block.x * block.y, (long long)B * ((L + TILE - 1) / TILE), false,
+      &plan);
+  if (err != cudaSuccess || scratch_short(plan, scratch_floats, need))
+    return err;
+  if (plan.scratch == 0)
+    minplus_send_kernel<KERNEL, true><<<plan.grid, block, plan.dyn, st>>>(
+        hs, p, r, alpha, msg, vmin, tol, B, K, L, nullptr);
+  else
+    minplus_send_kernel<KERNEL, false><<<plan.grid, block, plan.dyn, st>>>(
+        hs, p, r, alpha, msg, vmin, tol, B, K, L, scratch);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// scratch, scratch_floats, need: the staging hand-shake of
+// minplus.cuh::scratch_short.  Returns 0 or the CUDA error code.
 extern "C" int minplus_send_f32(const float* hs, const float* p,
                                 const float* r, const float* alpha,
                                 float* msg, float* vmin, float tol,
                                 int kernel, int B, int K, int L,
-                                void* stream) {
-  dim3 block(TILE, target_blocks(K));
-  dim3 grid((L + TILE - 1) / TILE, B);
+                                float* scratch, long long scratch_floats,
+                                long long* need, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  size_t smem = stage_bytes(K);
-  cudaError_t err = allow_stage(
-      kernel == 1 ? (const void*)minplus_send_kernel<1>
-                  : (const void*)minplus_send_kernel<2>, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (kernel == 1)
-    minplus_send_kernel<1><<<grid, block, smem, st>>>(hs, p, r, alpha, msg,
-                                                      vmin, tol, K, L);
-  else
-    minplus_send_kernel<2><<<grid, block, smem, st>>>(hs, p, r, alpha, msg,
-                                                      vmin, tol, K, L);
-  return (int)cudaGetLastError();
+  return (int)(kernel == 1
+                   ? launch<1>(hs, p, r, alpha, msg, vmin, tol, B, K, L,
+                               scratch, scratch_floats, need, st)
+                   : launch<2>(hs, p, r, alpha, msg, vmin, tol, B, K, L,
+                               scratch, scratch_floats, need, st));
 }

@@ -34,10 +34,11 @@
 // launch, it cannot deadlock), and its blocks stride over the step's jobs.
 //
 // A job is one send for a tile of 32 neighbouring lanes, done by a block of
-// 32 x ceil(K / 8) threads (minplus.cuh::send_lane).  Only lanes that hold a
-// pixel at a step are visited: y in [max(0, t - W + 1), min(H - 1, t)].  Every
-// other lane of a column is padding whose masks are zero and whose messages
-// stay zero, so skipping it changes nothing.
+// 32 x target_blocks(K) threads (minplus.cuh::send_lane; at most 12 warps,
+// more than 96 labels in several passes, so every K is taken).  Only lanes
+// that hold a pixel at a step are visited: y in [max(0, t - W + 1),
+// min(H - 1, t)].  Every other lane of a column is padding whose masks are
+// zero and whose messages stay zero, so skipping it changes nothing.
 //
 // What bounds it: per sweep 8 sends x K^2 x 6 float32 instructions per pixel
 // against every live problem and message entry moved once per pass; at teddy
@@ -65,6 +66,7 @@ struct Params {
   float* gD;       // scratch [K, H]
   double* lbacc;   // scratch [LB_SLOTS, H]
   double* lb;      // out [1]
+  float* gstage;   // scratch: grid x stage_floats(K), or null (plan_stage)
   float tol;
   int K, H, W, T;
 };
@@ -91,10 +93,13 @@ __device__ __forceinline__ void live_range(const Params& P, int s, int& lo,
 
 // Phase A of step t: beliefs of column c = t + 1 -> gD (and, backward, the
 // node term of the bound).  The additions follow
-// solvers/wavefront.py::_beliefs_col term by term.
+// solvers/wavefront.py::_beliefs_col term by term.  Thread y sums the labels
+// k = (p KT + j) blockDim.y + y, j < KT, in passes p; backward, the sums of
+// the passes before the last wait in gD for the step's minimum.
 template <bool BACKWARD>
 __device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE]) {
-  const int K = P.K, H = P.H, c = t + 1;
+  const int K = P.K, H = P.H, c = t + 1, ny = blockDim.y;
+  const int npass = target_passes(K);
   const long long KH = (long long)K * H;
   int lo, hi;
   live_range(P, t, lo, hi);
@@ -117,37 +122,44 @@ __device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE]) {
     if (active) {
       gam = P.gamma[(long long)c * H + l];
       const bool up_in = l >= 1, dn_in = l + 1 < H;
+      for (int p = 0; p < npass; ++p) {
 #pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const int k = threadIdx.y + j * blockDim.y;
-        if (k < K) {
-          const long long o = (long long)k * H + l;
-          float d = th[o] + A0[o];
-          d = d + A1[o];
-          d = d + B0[o];
-          d = d + B1[o];
-          d = d + Am0[o];
-          d = d + (up_in ? Am1[o - 1] : 0.0f);
-          d = d + Bp0[o];
-          d = d + (dn_in ? Bp1[o + 1] : 0.0f);
-          D[j] = d;
-          part = fminf(part, d);
+        for (int j = 0; j < KT; ++j) {
+          const int k = (p * KT + j) * ny + threadIdx.y;
+          if (k < K) {
+            const long long o = (long long)k * H + l;
+            float d = th[o] + A0[o];
+            d = d + A1[o];
+            d = d + B0[o];
+            d = d + B1[o];
+            d = d + Am0[o];
+            d = d + (up_in ? Am1[o - 1] : 0.0f);
+            d = d + Bp0[o];
+            d = d + (dn_in ? Bp1[o + 1] : 0.0f);
+            D[j] = d;
+            part = fminf(part, d);
+            if (!BACKWARD)
+              P.gD[o] = gam * d;
+            else if (p + 1 < npass)
+              P.gD[o] = d;  // corrected below
+          }
         }
       }
     }
-    float vmin = 0.0f;
     if (BACKWARD) {
-      vmin = block_min_over_y(part, sm);
+      const float vmin = block_min_over_y(part, sm);
       // every live lane holds a pixel: the plain version's pix mask is 1
       if (active && threadIdx.y == 0) P.lbacc[l] += (double)vmin;
-    }
-    if (active) {
+      if (active) {
+        for (int p = 0; p < npass; ++p) {
 #pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const int k = threadIdx.y + j * blockDim.y;
-        if (k < K) {
-          float d = BACKWARD ? D[j] - vmin : D[j];
-          P.gD[(long long)k * H + l] = gam * d;
+          for (int j = 0; j < KT; ++j) {
+            const int k = (p * KT + j) * ny + threadIdx.y;
+            if (k < K) {
+              float* o = P.gD + (long long)k * H + l;
+              *o = gam * ((p + 1 < npass ? *o : D[j]) - vmin);
+            }
+          }
         }
       }
     }
@@ -157,7 +169,7 @@ __device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE]) {
 // Phase B of step t: the four sends.  Heads are the group the pass writes at
 // column c (forward: A = (RT, DN); backward: B = (LT, UP)); tails are the
 // other group, written into column cn = c + 1 (forward) or c - 1 (backward).
-template <int KERNEL, bool BACKWARD>
+template <int KERNEL, bool BACKWARD, bool SMEM>
 __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
                            float* stage) {
   const int K = P.K, H = P.H, c = t + 1;
@@ -185,7 +197,7 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
     const int d = rest / n_seg;  // direction within the group
     const int i = (rest - d * n_seg) * TILE + threadIdx.x;
 
-    bool active = false;
+    bool in = false, active = false;
     const float *g = nullptr, *xt = nullptr, *ys = nullptr;
     float* m = nullptr;
     float a = 0.0f;
@@ -193,8 +205,9 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
     if (head) {
       // head-send, direction d of the heads' group, at column c
       l = hlo + i;
-      if (l < hhi && vh[(2LL * c + d) * H + l] > 0.0f) {
-        active = true;
+      if (l < hhi) {
+        in = true;
+        active = vh[(2LL * c + d) * H + l] > 0.0f;
         const long long o = (2LL * c + d) * KH + l;
         g = P.gD + l;
         m = Mh + o;
@@ -208,8 +221,9 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
       // (forward: l - 1, backward: l + 1)
       l = tlo + i;
       const int ls = d == 0 ? l : (BACKWARD ? l + 1 : l - 1);
-      if (l < thi && ls >= 0 && ls < H && vt[(2LL * cn + d) * H + l] > 0.0f) {
-        active = true;
+      if (l < thi && ls >= 0 && ls < H) {
+        in = true;
+        active = vt[(2LL * cn + d) * H + l] > 0.0f;
         const long long o = (2LL * cn + d) * KH + l;
         g = P.gD + ls;
         m = Mt + o;
@@ -218,19 +232,22 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
         a = at[(2LL * cn + d) * H + l];
       }
     }
-    const float vmin = send_lane<KERNEL, true>(active, g, H, m, H, xt, H, ys,
-                                               H, a, P.tol, K, m, H, sm,
-                                               stage);
+    const float vmin = send_lane<KERNEL, true, SMEM>(in, active, g, H, m, H,
+                                                     xt, H, ys, H, a, P.tol,
+                                                     K, m, H, sm, stage);
     if (BACKWARD && active && threadIdx.y == 0)
       P.lbacc[(1 + (head ? 0 : 2) + d) * (long long)H + l] += (double)vmin;
   }
 }
 
-template <int KERNEL>
-__global__ void wavefront_sweep_kernel(const Params P) {
+template <int KERNEL, bool SMEM>
+__global__ void __launch_bounds__(TILE * MAX_TB)
+    wavefront_sweep_kernel(const Params P) {
   __shared__ float sm[MAX_TB][TILE];
   __shared__ double red[MAX_TB * TILE];
-  extern __shared__ float stage[];
+  extern __shared__ float smem_stage[];
+  float* stage = SMEM ? smem_stage
+                      : P.gstage + (long long)blockIdx.x * stage_floats(P.K);
   cg::grid_group grid = cg::this_grid();
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -242,13 +259,13 @@ __global__ void wavefront_sweep_kernel(const Params P) {
   for (int t = 0; t < P.T; ++t) {
     beliefs_step<false>(P, t, sm);
     grid.sync();
-    sends_step<KERNEL, false>(P, t, sm, stage);
+    sends_step<KERNEL, false, SMEM>(P, t, sm, stage);
     grid.sync();
   }
   for (int t = P.T - 1; t >= 0; --t) {
     beliefs_step<true>(P, t, sm);
     grid.sync();
-    sends_step<KERNEL, true>(P, t, sm, stage);
+    sends_step<KERNEL, true, SMEM>(P, t, sm, stage);
     grid.sync();
   }
 
@@ -267,12 +284,37 @@ __global__ void wavefront_sweep_kernel(const Params P) {
   }
 }
 
+template <int KERNEL>
+cudaError_t launch(Params P, float* scratch, long long scratch_floats,
+                   long long* need, cudaStream_t st) {
+  dim3 block(TILE, target_blocks(P.K));
+  // no more blocks than the widest step has jobs, and no more than are
+  // resident at once (the cooperative launch refuses a larger grid)
+  const int widest = P.H < P.W ? P.H : P.W;
+  StagePlan plan;
+  cudaError_t err = plan_stage(
+      (const void*)wavefront_sweep_kernel<KERNEL, true>,
+      (const void*)wavefront_sweep_kernel<KERNEL, false>, 0, P.K,
+      block.x * block.y, 4 * tiles(widest), true, &plan);
+  if (err != cudaSuccess || scratch_short(plan, scratch_floats, need))
+    return err;
+  P.gstage = scratch;
+  void* args[] = {(void*)&P};
+  err = cudaLaunchCooperativeKernel(plan.fn, dim3(plan.grid), block, args,
+                                    plan.dyn, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ptrs: P_COUNT device pointers in the order of enum Ptr (a host array);
-// dims: {K, H, W}.  Returns 0 or the CUDA error code.
+// dims: {K, H, W}; scratch, scratch_floats, need: the staging hand-shake of
+// minplus.cuh::scratch_short.  Returns 0 or the CUDA error code.
 extern "C" int wavefront_sweep_f32(const void* const* ptrs, const int* dims,
-                                   float tol, int kernel, void* stream) {
+                                   float tol, int kernel, float* scratch,
+                                   long long scratch_floats, long long* need,
+                                   void* stream) {
   Params P;
 #define FP(i) ((const float*)ptrs[i])
   P.theta = FP(P_THETA); P.D0 = FP(P_D0); P.QA = FP(P_QA); P.QB = FP(P_QB);
@@ -285,30 +327,8 @@ extern "C" int wavefront_sweep_f32(const void* const* ptrs, const int* dims,
   P.tol = tol;
   P.K = dims[0]; P.H = dims[1]; P.W = dims[2];
   P.T = P.H + P.W - 1;
-
-  const void* fn = kernel == 1 ? (const void*)wavefront_sweep_kernel<1>
-                               : (const void*)wavefront_sweep_kernel<2>;
-  dim3 block(TILE, target_blocks(P.K));
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = stage_bytes(P.K);
-  if (err == cudaSuccess) err = allow_stage(fn, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fn, block.x * block.y, smem);
-  if (err != cudaSuccess) return (int)err;
-  // no more blocks than the widest step has jobs, and no more than are
-  // resident at once (the cooperative launch refuses a larger grid)
-  const int widest = P.H < P.W ? P.H : P.W;
-  int most_jobs = 4 * tiles(widest);
-  int resident = per_sm * sms;
-  dim3 grid(most_jobs < resident ? most_jobs : resident);
-  if (grid.x < 1) return (int)cudaErrorLaunchOutOfResources;
-  void* args[] = {(void*)&P};
-  err = cudaLaunchCooperativeKernel(fn, grid, block, args, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(kernel == 1
+                   ? launch<1>(P, scratch, scratch_floats, need, st)
+                   : launch<2>(P, scratch, scratch_floats, need, st));
 }

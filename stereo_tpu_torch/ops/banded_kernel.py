@@ -20,15 +20,21 @@ K = 79 the operations are the larger bound (chip_smoke.py states both
 formulas).  The design does not carry the TPU kernel's resident windows,
 packed slabs and lane rotations over: it reads the problem's arrays where
 they lie and turns every roll into index arithmetic, with the guard before
-the load.  A step is two phases (beliefs, then the eight sends) with a
-grid-wide barrier after each; the kernel is persistent and launched
-cooperatively, so a grid that could not be resident at once is refused by the
-launch instead of hanging.  Only the lanes that hold a node at a step are
-visited, and a seam send touches one group of nb lanes.  Built with
-``-fmad=false``: messages and seam arrays equal the plain version's bit for
-bit; the bound is accumulated per lane in double and agrees to float32
-rounding (rtol 1e-5).  It takes every T >= 3 and K <= 96 (``MAX_K``).
-Inputs must be finite.  No single PyTorch call computes a sweep, so there is
+the load.  A step is two phases (beliefs, then the eight sends) and one
+grid-wide barrier, after the sends; a send job waits only for the tiles of
+beliefs it needs, through per-tile ready flags (``wait_lanes`` states the
+rule, tests/test_torch_any_k.py checks it), and issues its problem loads
+before it waits.  The kernel is persistent and launched cooperatively, so a
+grid that could not be resident at once is refused by the launch instead of
+hanging.  Only the lanes that hold a node at a step are visited, and a seam
+send touches one group of nb lanes.  Built with ``-fmad=false``: messages and
+seam arrays equal the plain version's bit for bit; the bound is accumulated
+per lane in double and agrees to float32 rounding (rtol 1e-5).  It takes
+every T >= 3 and every K: a block has at most 12 warps, more than 96 labels
+take several passes over the targets, and sources that do not fit shared
+memory (K above about 890) are staged in global scratch
+(csrc/minplus.cuh::plan_stage decides).  Inputs must be
+finite.  No single PyTorch call computes a sweep, so there is
 no library yardstick.  PERF.md has the times.
 
 The wrapper takes the plain version only when the problem lies on the CPU;
@@ -42,14 +48,8 @@ import ctypes
 
 import torch
 
-from stereo_tpu_torch.ops._launch import check_tensor, launch_failed
-from stereo_tpu_torch.ops.minplus import KT
-
-# a thread block of the kernel is ceil(K / KT) warps (32 lanes each), all
-# resident at once, and a warp's registers (about 140 a thread, see the
-# build's ptxas lines) come out of one of the multiprocessor's four files of
-# 16,384: three warps a file, 12 target blocks
-MAX_K = 12 * KT
+from stereo_tpu_torch.ops._launch import check_tensor, launch_staged
+from stereo_tpu_torch.ops.minplus import TILE
 
 # the bound's accumulators of the kernel: the node term and the eight sends
 LB_SLOTS = 9
@@ -69,7 +69,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     library."""
     ptr = ctypes.c_void_p
     lib.banded_sweep_f32.argtypes = [ptr, ptr, ctypes.c_float, ctypes.c_int,
-                                     ptr]
+                                     ptr, ctypes.c_longlong, ptr, ptr]
     lib.banded_sweep_f32.restype = ctypes.c_int
     return lib
 
@@ -99,6 +99,38 @@ def problem_shapes(spec, K: int) -> dict:
     return shapes
 
 
+def live_lanes(spec, t: int) -> tuple[int, int]:
+    """Lanes [lo, hi) of step t's column that hold nodes (empty outside
+    0 .. T-1); phase A's tile j of the step is lanes lo + 32 j + [0, 32)."""
+    if t < 0 or t >= spec.T:
+        return 0, 0
+    return (max(0, t - spec.Bw + 1) * spec.nb,
+            (min(spec.Bh - 1, t) + 1) * spec.nb)
+
+
+def wait_lanes(spec, t: int, backward: bool, seg: int,
+               tile: int) -> tuple[int, int]:
+    """Lanes [lo, hi) of step t's phase A that job (seg, tile) of phase B
+    waits for: it reads their gD, or overwrites a message that their beliefs
+    read.  The rule of csrc/banded_kernel.cu::sends_step, clipped to the
+    step's live lanes."""
+    nb = spec.nb
+    hlo, hhi = live_lanes(spec, t)
+    if seg < 2:  # head-sends: own lane
+        lo = hlo + tile * TILE
+        hi = lo + TILE
+    elif seg < 4:  # tail-sends: own lane and the vertical neighbour
+        l0 = live_lanes(spec, t - 1 if backward else t + 1)[0] + tile * TILE
+        lo, hi = (l0, l0 + TILE + nb) if backward else (l0 - nb, l0 + TILE)
+    elif seg < 6:  # x-seam sends: the lanes either side
+        xg = t - (spec.Bw - 1) if backward else t
+        lo = xg * nb + tile * TILE - 1
+        hi = lo + TILE + 2
+    else:  # y-seam sends: every tile
+        lo, hi = hlo, hhi
+    return max(lo, hlo), min(hi, hhi)
+
+
 def sweep_banded(bp, state):
     """One banded sweep (forward + backward) -> (state, lower bound).
 
@@ -114,9 +146,6 @@ def sweep_banded(bp, state):
 
         return banded._sweep_steps(bp, state, use_kernel=False)
     spec, K, dev = bp.spec, bp.K, bp.device
-    if K > MAX_K:
-        raise ValueError(f"sweep_banded: K = {K} labels, the CUDA kernel "
-                         f"takes at most {MAX_K}")
     MA, MB, (SxL, SxR, SyU, SyD) = state
     shapes = problem_shapes(spec, K)
     tensors = [getattr(bp, n) for n in _PROBLEM_F32 + _PROBLEM_MASKS]
@@ -129,17 +158,16 @@ def sweep_banded(bp, state):
     lib = _library()
     gD = torch.empty((K, spec.L), dtype=torch.float32, device=dev)
     lbacc = torch.empty((LB_SLOTS, spec.Lp), dtype=torch.float64, device=dev)
+    flags = torch.empty((-(-spec.L // TILE),), dtype=torch.int32, device=dev)
     lb = torch.empty((), dtype=torch.float64, device=dev)
-    ptrs = (ctypes.c_void_p * (len(tensors) + 3))(
+    ptrs = (ctypes.c_void_p * (len(tensors) + 4))(
         *(t.data_ptr() for t in tensors), gD.data_ptr(), lbacc.data_ptr(),
-        lb.data_ptr())
+        flags.data_ptr(), lb.data_ptr())
     dims = (ctypes.c_int * 5)(K, spec.Bh, spec.Bw, spec.Gy, spec.Gx)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.banded_sweep_f32(ptrs, dims, float(bp.tol),
-                                    int(bp.kernel), stream)
-    if code != 0:
-        launch_failed("sweep_banded", code)
+        launch_staged("sweep_banded", lambda *scratch: lib.banded_sweep_f32(
+            ptrs, dims, float(bp.tol), int(bp.kernel), *scratch, stream), dev)
     sweep_banded.launches += 1
     return state, lb.to(torch.float32)
 

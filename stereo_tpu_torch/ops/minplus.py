@@ -20,12 +20,14 @@ R[K], weight alpha and truncation tol:
     against (4 K + 1) planes read and 2 K written; at K = 79 the operations
     are the larger bound (PERF.md has the times).  Design: a thread block
     owns 32 pixels, thread (x, y) holds the sources i = 8 y .. 8 y + 7 of
-    pixel x in registers with eight running minima of msgB, the block stages
-    the tile's R and H_B columns in shared memory, walks j over them in
-    chunks of eight and reduces each chunk's msgA minima over threadIdx.y in
-    shared memory.  Nothing of the TPU kernel's (K, 8, 128) tiles or its
-    padding to them is carried over: K and the plane size are runtime
-    arguments and the ragged edges are guarded by index.  Built with
+    pixel x in registers with eight running minima of msgB (more than 96
+    labels: several passes over the sources, at most 12 warps a block), the
+    block stages the tile's R and H_B columns in shared memory (in global
+    scratch when K is too large for it), walks j over them in chunks of
+    eight and reduces each chunk's msgA minima over threadIdx.y in shared
+    memory.  It takes every K.  Nothing of the TPU kernel's (K, 8, 128)
+    tiles or its padding to them is carried over: K and the plane size are
+    runtime arguments and the ragged edges are guarded by index.  Built with
     ``-fmad=false``: float32 results equal the plain version's bit for bit.
     Inputs must be finite (fminf drops a NaN that torch.minimum keeps); a
     pixel whose alpha is 0 still yields finite minima.  No single PyTorch
@@ -51,9 +53,11 @@ R[K], weight alpha and truncation tol:
     at [2, 79, 1536] both are under a microsecond, so a launch's latency is
     what one sees (PERF.md has the times).  Design: a thread block owns 32
     lanes, thread (x, y) holds 8 running minima (targets 8 y .. 8 y + 7) of
-    lane x in registers and walks the K sources once; the block reduces the
-    minimum over targets in shared memory.  Built with ``-fmad=false``:
-    float32 results equal the plain version's bit for bit.  Inputs must be
+    lane x in registers and walks the K sources, staged in shared memory (in
+    global scratch when K is too large for it), once per pass (more than 96
+    labels take several, at most 12 warps a block); the block reduces the
+    minimum over targets in shared memory.  It takes every K.  Built with
+    ``-fmad=false``: float32 results equal the plain version's bit for bit.  Inputs must be
     finite (fminf drops a NaN that torch.minimum keeps).  No single PyTorch
     call computes the function, so there is no library yardstick.
     ``minplus_send.launches`` counts kernel launches.
@@ -66,12 +70,23 @@ import ctypes
 import torch
 
 from stereo_tpu_torch.energy import truncated_kernel
-from stereo_tpu_torch.ops._launch import check_tensor, launch_failed
+from stereo_tpu_torch.ops._launch import check_tensor, launch_staged
 
 # the send kernels split the K targets into blocks of KT over threadIdx.y
-# (csrc/minplus.cuh); a thread block has at most 1024 threads = 32 lanes x 32
+# (csrc/minplus.cuh): a thread block is TILE lanes x target_blocks(K) warps,
+# at most MAX_TB; more than MAX_TB * KT labels take several passes
+TILE = 32
 KT = 8
-MAX_K = 32 * KT
+MAX_TB = 12
+
+
+def target_blocks(K: int) -> int:
+    """Warps of a send block for K labels (csrc/minplus.cuh's
+    ``target_blocks``): ceil(K / KT) up to MAX_TB, else the fewest passes of
+    at most MAX_TB warps, the target blocks spread evenly."""
+    blocks = -(-K // KT)
+    passes = -(-blocks // MAX_TB)
+    return -(-blocks // passes)
 
 
 def minplus_pair_ref(H_A, H_B, P, R, alpha, tol, kernel: int):
@@ -112,7 +127,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of a built minplus_send
     library."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.minplus_send_f32.argtypes = [ptr] * 6 + [f32, i32, i32, i32, i32, ptr]
+    lib.minplus_send_f32.argtypes = (
+        [ptr] * 6 + [f32, i32, i32, i32, i32, ptr, ctypes.c_longlong, ptr,
+                     ptr])
     lib.minplus_send_f32.restype = i32
     return lib
 
@@ -121,8 +138,9 @@ def bind_pair(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of a built minplus_pair
     library."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64 = ctypes.c_longlong
     lib.minplus_pair_f32.argtypes = (
-        [ptr] * 7 + [f32, i32, i32, ctypes.c_longlong, ptr])
+        [ptr] * 7 + [f32, i32, i32, i64, ptr, i64, ptr, ptr])
     lib.minplus_pair_f32.restype = i32
     return lib
 
@@ -155,9 +173,6 @@ def minplus_pair(H_A, H_B, P, R, alpha, tol, kernel: int):
     if not P.is_cuda:
         return minplus_pair_ref(H_A, H_B, P, R, alpha, tol, kernel)
     K, H, W = P.shape
-    if K > MAX_K:
-        raise ValueError(f"minplus_pair: K = {K} labels, the CUDA kernel "
-                         f"takes at most {MAX_K}")
     dev = P.device
     args = (("H_A", H_A, (K, H, W)), ("H_B", H_B, (K, H, W)),
             ("P", P, (K, H, W)), ("R", R, (K, H, W)),
@@ -170,11 +185,14 @@ def minplus_pair(H_A, H_B, P, R, alpha, tol, kernel: int):
     if K * H * W > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            code = lib.minplus_pair_f32(
-                *(t.data_ptr() for _, t, _ in args), msgA.data_ptr(),
-                msgB.data_ptr(), float(tol), int(kernel), K, H * W, stream)
-        if code != 0:
-            launch_failed("minplus_pair", code)
+
+            def call(*scratch):
+                return lib.minplus_pair_f32(
+                    *(t.data_ptr() for _, t, _ in args), msgA.data_ptr(),
+                    msgB.data_ptr(), float(tol), int(kernel), K, H * W,
+                    *scratch, stream)
+
+            launch_staged("minplus_pair", call, dev)
         minplus_pair.launches += 1
     return msgA, msgB
 
@@ -197,9 +215,6 @@ def minplus_send(hs, p, r, alpha, tol, kernel: int):
     if not hs.is_cuda:
         return minplus_send_ref(hs, p, r, alpha, tol, kernel)
     K, L = hs.shape[-2:]
-    if K > MAX_K:
-        raise ValueError(f"minplus_send: K = {K} labels, the CUDA kernel "
-                         f"takes at most {MAX_K}")
     lead, hs, p, r, alpha = _broadcast_send_args(hs, p, r, alpha)
     dev = hs.device
     B = 1
@@ -216,12 +231,14 @@ def minplus_send(hs, p, r, alpha, tol, kernel: int):
     if B * L > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            code = lib.minplus_send_f32(
-                hs.data_ptr(), p.data_ptr(), r.data_ptr(), alpha.data_ptr(),
-                msg.data_ptr(), vmin.data_ptr(), float(tol), int(kernel), B,
-                K, L, stream)
-        if code != 0:
-            launch_failed("minplus_send", code)
+
+            def call(*scratch):
+                return lib.minplus_send_f32(
+                    hs.data_ptr(), p.data_ptr(), r.data_ptr(),
+                    alpha.data_ptr(), msg.data_ptr(), vmin.data_ptr(),
+                    float(tol), int(kernel), B, K, L, *scratch, stream)
+
+            launch_staged("minplus_send", call, dev)
         minplus_send.launches += 1
     return msg.reshape(lead + (K, L)), vmin.reshape(lead + (L,))
 

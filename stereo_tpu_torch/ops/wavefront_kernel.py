@@ -31,9 +31,12 @@ launch instead of hanging.  Only the lanes that hold a pixel at a step are
 visited.  Built with ``-fmad=false``: messages equal the plain version's bit
 for bit; the bound is accumulated per lane in double and agrees to float32
 rounding (rtol 1e-5).  It takes every T >= 1 (``MIN_T``: any grid with a
-pixel) and K <= 128 (``MAX_K``).  Inputs must be finite.  No single PyTorch
-call computes a sweep, so there is no library yardstick.  PERF.md has the
-times.
+pixel) and every K: a block has at most 12 warps, and more than 96 labels
+take several passes over the targets; sources that do not fit shared memory
+(K above about 890) are staged in global scratch (csrc/minplus.cuh::
+plan_stage decides).  Inputs must be finite.
+No single PyTorch call computes a sweep, so there is no library yardstick.
+PERF.md has the times.
 
 The wrapper takes the plain version only when the problem lies on the CPU;
 for a CUDA problem it launches the kernel or raises.
@@ -46,14 +49,8 @@ import ctypes
 
 import torch
 
-from stereo_tpu_torch.ops._launch import check_tensor, launch_failed
-from stereo_tpu_torch.ops.minplus import KT
+from stereo_tpu_torch.ops._launch import check_tensor, launch_staged
 
-# a thread block of the kernel is ceil(K / KT) warps (32 lanes each), all
-# resident at once, and a warp's registers (128 a thread, see the build's
-# ptxas lines) come out of one of the multiprocessor's four files of 16,384:
-# four warps a file, 16 target blocks
-MAX_K = 16 * KT
 # the least number of anti-diagonals: one, a grid of a single pixel
 MIN_T = 1
 
@@ -71,7 +68,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     library."""
     ptr = ctypes.c_void_p
     lib.wavefront_sweep_f32.argtypes = [ptr, ptr, ctypes.c_float,
-                                        ctypes.c_int, ptr]
+                                        ctypes.c_int, ptr, ctypes.c_longlong,
+                                        ptr, ptr]
     lib.wavefront_sweep_f32.restype = ctypes.c_int
     return lib
 
@@ -95,11 +93,8 @@ def problem_shapes(K: int, H: int, W: int) -> dict:
                 MA=(T2, 2, K, H), MB=(T2, 2, K, H))
 
 
-def check_limits(K: int, T: int):
-    """Raise on a problem the CUDA kernel does not take."""
-    if K > MAX_K:
-        raise ValueError(f"sweep_wavefront: K = {K} labels, the CUDA kernel "
-                         f"takes at most {MAX_K}")
+def check_limits(T: int):
+    """Raise on a problem the CUDA kernel does not take: it takes every K."""
     if T < MIN_T:
         raise ValueError(f"sweep_wavefront: T = {T} anti-diagonals, the CUDA "
                          f"kernel takes at least {MIN_T}")
@@ -119,7 +114,7 @@ def sweep_wavefront(sk, M):
 
         return wavefront._sweep_steps(sk, M, use_kernel=False)
     K, H, W, dev = sk.K, sk.H, sk.W, sk.device
-    check_limits(K, sk.T)
+    check_limits(sk.T)
     MA, MB = M
     shapes = problem_shapes(K, H, W)
     tensors = [getattr(sk, n) for n in _PROBLEM] + [MA, MB]
@@ -135,10 +130,10 @@ def sweep_wavefront(sk, M):
     dims = (ctypes.c_int * 3)(K, H, W)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.wavefront_sweep_f32(ptrs, dims, float(sk.tol),
-                                       int(sk.kernel), stream)
-    if code != 0:
-        launch_failed("sweep_wavefront", code)
+        launch_staged("sweep_wavefront", lambda *scratch:
+                      lib.wavefront_sweep_f32(ptrs, dims, float(sk.tol),
+                                              int(sk.kernel), *scratch,
+                                              stream), dev)
     sweep_wavefront.launches += 1
     return (MA, MB), lb.to(torch.float32)
 

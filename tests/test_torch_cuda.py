@@ -102,7 +102,8 @@ def test_default_compact_on_card(cuda):
 # ------------------------------------------------ the banded schedule's kernels
 @pytest.mark.parametrize("kernel", [1, 2])
 @pytest.mark.parametrize("B,K,L", [(1, 2, 53), (2, 15, 96), (2, 79, 53),
-                                   (1, 256, 40)])  # 256: the kernel's most
+                                   (1, 256, 40), (2, 300, 40),
+                                   (1, 1000, 33)])  # 1000: global staging
 def test_send_kernel_bitwise_on_card(cuda, B, K, L, kernel):
     args = [torch.as_tensor(a, device=cuda)
             for a in testing.send_inputs(K, B, K, L)]
@@ -134,7 +135,8 @@ def _clone(state):
 @pytest.mark.parametrize("K,H,W,Bh,Bw", [
     (3, 8, 10, 4, 5), (4, 9, 8, 4, 4), (3, 10, 11, 5, 4), (3, 9, 4, 4, 4),
     (3, 4, 9, 4, 3), (3, 6, 5, 6, 5), (15, 40, 47, 8, 16), (9, 13, 11, 2, 2),
-    (96, 7, 9, 3, 4)])  # 96 labels: the most the kernel takes
+    (96, 7, 9, 3, 4),  # 96 labels: one pass of the widest block
+    (97, 7, 9, 3, 4), (202, 10, 11, 5, 4)])  # several passes
 def test_banded_sweep_kernel_on_card(cuda, K, H, W, Bh, Bw, kernel):
     """Two sweeps (zero, then warm state): messages and seam arrays bit for
     bit, the bound to float32 rounding."""
@@ -176,9 +178,13 @@ def test_banded_wrappers_raise_on_card_for_bad_input(cuda):
         t_bk.sweep_banded(bp, (MA[:-1].contiguous(), MB, S))
     with pytest.raises(ValueError, match="contiguous"):
         t_bk.sweep_banded(bp, (MA, MB, (S[0].t().contiguous().t(), *S[1:])))
-    _, wide, wide_state = _banded_problem(cuda, t_bk.MAX_K + 1, 6, 6, 3, 3, 1)
-    with pytest.raises(ValueError, match="at most"):
-        t_bk.sweep_banded(wide, wide_state)
+    # 97 labels, once refused: two passes of the targets, bit for bit
+    _, wide, wide_state = _banded_problem(cuda, 97, 6, 6, 3, 3, 1)
+    ref, _ = t_banded._sweep_steps(wide, _clone(wide_state), use_kernel=False)
+    got, _ = t_bk.sweep_banded(wide, wide_state)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(got[:2], ref[:2]))
+    assert all(torch.equal(g, r) for g, r in zip(got[2], ref[2]))
     hs, p, r, alpha = [torch.as_tensor(a, device=cuda)
                        for a in testing.send_inputs(0, 2, 3, 40)]
     with pytest.raises(ValueError, match="float32"):
@@ -192,7 +198,8 @@ def test_banded_wrappers_raise_on_card_for_bad_input(cuda):
 # ------------------------------------------- the min-plus pair kernel
 @pytest.mark.parametrize("kernel", [1, 2])
 @pytest.mark.parametrize("K,H,W", [(2, 5, 9), (8, 19, 53), (15, 37, 53),
-                                   (79, 19, 53), (256, 3, 40)])  # 256: the most
+                                   (79, 19, 53), (256, 3, 40),
+                                   (300, 3, 40), (1000, 2, 17)])
 def test_pair_kernel_bitwise_on_card(cuda, K, H, W, kernel):
     args = [torch.as_tensor(a, device=cuda)
             for a in testing.pair_inputs(K, K, H, W)]
@@ -218,7 +225,7 @@ def _wavefront_problem(cuda, K, H, W, kernel):
 @pytest.mark.parametrize("K,H,W", [
     (3, 6, 9), (4, 7, 6), (3, 40, 9), (3, 9, 40), (3, 2, 9), (3, 9, 2),
     (3, 1, 5), (3, 5, 1), (2, 1, 1), (15, 40, 47),
-    (128, 7, 9)])  # 128 labels: the most the kernel takes
+    (128, 7, 9), (202, 9, 12)])  # beyond one pass of the targets
 def test_wavefront_sweep_kernel_on_card(cuda, K, H, W, kernel):
     """Two sweeps (zero, then warm state): messages bit for bit, the bound
     to float32 rounding."""
@@ -257,9 +264,13 @@ def test_wavefront_and_pair_wrappers_raise_on_card_for_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         t_wfk.sweep_wavefront(
             sk, (MA, MB.transpose(2, 3).contiguous().transpose(2, 3)))
-    _, wide, wide_M = _wavefront_problem(cuda, t_wfk.MAX_K + 1, 4, 5, 1)
-    with pytest.raises(ValueError, match="at most"):
-        t_wfk.sweep_wavefront(wide, wide_M)
+    # 129 labels, once refused: three passes of the targets, bit for bit
+    _, wide, wide_M = _wavefront_problem(cuda, 129, 4, 5, 1)
+    ref, _ = t_wf._sweep_steps(wide, tuple(m.clone() for m in wide_M),
+                               use_kernel=False)
+    got, _ = t_wfk.sweep_wavefront(wide, wide_M)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     # no pixel, T = 0: such a problem cannot be built, so a stand-in
     empty = types.SimpleNamespace(theta=MA, K=3, H=0, W=1, T=0, device=cuda)
     with pytest.raises(ValueError, match="at least"):
@@ -280,6 +291,14 @@ def test_wavefront_and_pair_wrappers_raise_on_card_for_bad_input(cuda):
         t_mp.minplus_pair(*bad, 1.0, 1)
     with pytest.raises(ValueError, match="kernel"):
         t_mp.minplus_pair(*args, 1.0, 3)
-    wide = [torch.zeros((t_mp.MAX_K + 1, 2, 3), device=cuda)] * 4
-    with pytest.raises(ValueError, match="at most"):
-        t_mp.minplus_pair(*wide, torch.zeros((2, 3), device=cuda), 1.0, 1)
+    # 257 labels, once refused: several passes, bit for bit
+    wide = [torch.as_tensor(a, device=cuda)
+            for a in testing.pair_inputs(1, 257, 2, 3)]
+    got = t_mp.minplus_pair(*wide, 1.0, 1)
+    ref = t_mp.minplus_pair_ref(*wide, 1.0, 1)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    wide = [torch.as_tensor(a, device=cuda)
+            for a in testing.send_inputs(1, 1, 257, 40)]
+    got = t_mp.minplus_send(*wide, 1.0, 1)
+    ref = t_mp.minplus_send_ref(*wide, 1.0, 1)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))

@@ -1,7 +1,7 @@
-"""The port stands alone: no file under stereo_tpu_torch/, nor chip_smoke.py
-or the port's example, imports jax, anything of stereo_tpu, or PIL (an AST
-scan — the interpreter may have jax loaded already, so sys.modules cannot
-tell).  And with no card present, an entry point called with its default
+"""The port stands alone: no file under stereo_tpu_torch/, nor chip_smoke.py,
+the port's example or its two tools, imports jax, anything of stereo_tpu, or
+PIL (an AST scan — the interpreter may have jax loaded already, so
+sys.modules cannot tell).  And with no card present, an entry point called with its default
 device raises instead of computing on the CPU."""
 
 import ast
@@ -19,7 +19,9 @@ FILES = sorted(
     glob.glob(os.path.join(ROOT, "stereo_tpu_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(ROOT, "chip_smoke.py"),
-       os.path.join(ROOT, "examples", "run_ncc_torch.py")])
+       os.path.join(ROOT, "examples", "run_ncc_torch.py"),
+       os.path.join(ROOT, "tools", "profile_main_path.py"),
+       os.path.join(ROOT, "tools", "time_banded_kernel.py")])
 
 
 def _imports(path):
@@ -156,8 +158,9 @@ def test_kernel_wrapper_refuses_wrong_cuda_input():
 
 def test_banded_wrappers_refuse_what_the_kernels_do_not_take():
     """The checks that run before any launch, on CPU stand-ins: the fused
-    sweep's masks are bool, its state float32 of the spec's shapes; more
-    labels than a thread block can hold are refused."""
+    sweep's masks are bool, its state float32 of the spec's shapes; a
+    thread block has at most 12 warps of 8 targets, and more labels take
+    more passes, not a refusal."""
     from stereo_tpu_torch.ops import _launch, banded_kernel, minplus
     from stereo_tpu_torch.solvers import banded
 
@@ -175,7 +178,33 @@ def test_banded_wrappers_refuse_what_the_kernels_do_not_take():
     assert shapes["MA"] == (spec.T + 2, 2, 5, spec.L)
     assert shapes["SyU"] == shapes["PyD_q"] == (5, spec.Lp)
     assert shapes["vSyD"] == shapes["PyU_a"] == (spec.Lp,)
-    assert minplus.MAX_K == 256 and banded_kernel.MAX_K == 96
+    assert minplus.MAX_TB == 12 and minplus.KT == 8
+    assert [minplus.target_blocks(K) for K in (1, 8, 79, 96)] == [1, 1, 10, 12]
+    # beyond one pass: the fewest passes, their target blocks spread evenly
+    assert [minplus.target_blocks(K) for K in (97, 128, 202, 300, 1000)] == [
+        7, 8, 9, 10, 12]
+    assert not hasattr(banded_kernel, "MAX_K") and not hasattr(minplus,
+                                                               "MAX_K")
+    # the staging hand-shake: the kernel's entry point decides; one call
+    # when shared memory holds the sources, a second with the scratch it
+    # asked for otherwise, a refusal raises
+    def entry(ask, code=0):
+        calls = []
+
+        def call(scratch, floats, need):
+            calls.append((scratch is not None, floats))
+            need._obj.value = ask
+            return code
+        return calls, call
+
+    calls, call = entry(0)
+    _launch.launch_staged("minplus_send", call, "cpu")
+    assert calls == [(False, 0)]
+    calls, call = entry(640)
+    _launch.launch_staged("minplus_send", call, "cpu")
+    assert calls == [(False, 0), (True, 640)]
+    with pytest.raises(RuntimeError, match="refused"):
+        _launch.launch_staged("minplus_send", entry(640, code=1)[1], "cpu")
     assert banded_kernel.LB_SLOTS == 9
     with pytest.raises(RuntimeError, match="refused"):
         _launch.launch_failed("sweep_wavefront", 720)

@@ -332,12 +332,12 @@ def test_convert_carries_the_groups_both_ways():
 
 
 def test_kernel_limits_are_stated_and_checked():
-    assert t_wfk.MAX_K == 128 and t_wfk.MIN_T == 1 and t_wfk.LB_SLOTS == 5
-    t_wfk.check_limits(128, 1)
-    with pytest.raises(ValueError, match="at most"):
-        t_wfk.check_limits(129, 10)
+    """The kernel takes every K (no label limit is left) and every T >= 1."""
+    assert not hasattr(t_wfk, "MAX_K")
+    assert t_wfk.MIN_T == 1 and t_wfk.LB_SLOTS == 5
+    t_wfk.check_limits(1)
     with pytest.raises(ValueError, match="at least"):
-        t_wfk.check_limits(3, 0)
+        t_wfk.check_limits(0)
     shapes = t_wfk.problem_shapes(5, 4, 7)
     assert shapes["MA"] == shapes["QB"] == (12, 2, 5, 4)
     assert shapes["gamma"] == (12, 4) and shapes["aA"] == (12, 2, 4)
