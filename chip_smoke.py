@@ -49,9 +49,9 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      and the wavefront schedules, 8 sweeps and one decode each, through
      kernels 5 and 6, and checks lb <= E; then repeats the first two sweeps
      through the plain version and compares labels and energy;
- 11. runs the fused banded sweep twice from one warm state at teddy K = 79
-     and checks that both give the same bits (a race between the ready
-     flags and the reads they guard would differ);
+ 11. runs each fused sweep (banded and wavefront) twice from one warm state
+     at teddy K = 79 and checks that both runs give the same bits (a race
+     between the ready flags and the reads they guard would differ);
  12. times every kernel at the teddy K = 79 shape (CUDA events) beside its
      plain version and its byte / operation bounds (the fused sweeps also at
      K = 15 and K = 202, beside their plain versions), and prints the
@@ -65,6 +65,7 @@ is non-zero and the last line is never printed.  The last line is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -202,20 +203,31 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def ptxas_by_function(log: str) -> dict:
+    """ptxas -v output -> {function: its register and spill lines}."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            fn = m.group(1)
+        elif fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.split(" : ")[-1].strip())
+    return out
+
+
 def phase_device_and_build():
     smi = nvidia_smi()
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    ptxas = [ln for log in _build.build_log.values()
-             for ln in log["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
     check(sorted(libs) == ["banded_kernel", "minplus_pair", "minplus_send",
                            "phase_kernel", "wavefront_kernel"],
           f"built {sorted(libs)}")
     say("device+build", card=smi, torch=torch.__version__,
         cuda=torch.version.cuda, built=sorted(libs), build_seconds=secs,
-        ptxas=ptxas[:64])
+        ptxas={name: ptxas_by_function(log["ptxas"])
+               for name, log in sorted(_build.build_log.items())})
     return smi
 
 
@@ -1084,6 +1096,34 @@ def banded_sweep_repeatable(K: int = 79, H: int = 375, W: int = 450):
     torch.cuda.empty_cache()
 
 
+def wavefront_sweep_repeatable(K: int = 79, H: int = 375, W: int = 450):
+    """Two fused wavefront sweeps at teddy's shape from one warm state give
+    the same bits (state and bound): a race between the ready flags and the
+    reads they guard would show as a difference."""
+    prob = [torch.as_tensor(a, device=DEV)
+            for a in testing.synthetic_problem(K, H, W)]
+    sk = wavefront._Skewed(*prob, 1, 8.0)
+    del prob
+    M, _ = wavefront_kernel.sweep_wavefront(sk, wavefront.messages_to_groups(
+        torch.zeros((4, K, H, W), device=DEV), W))
+    runs = []
+    for _ in range(2):
+        out, lb = wavefront_kernel.sweep_wavefront(
+            sk, tuple(m.clone() for m in M))
+        torch.cuda.synchronize()
+        runs.append((out, float(lb)))
+    (a, lb_a), (b, lb_b) = runs
+    for name, x, y in zip(("MA", "MB"), a, b):
+        check(torch.equal(x, y),
+              f"two fused wavefront sweeps from one state differ ({name})")
+    check(lb_a == lb_b,
+          f"two fused wavefront sweeps' bounds differ: {lb_a} {lb_b}")
+    say("wavefront_repeatable", K=K, size=[H, W], runs=2, lower_bound=lb_a,
+        equal="bitwise (state and bound)")
+    del sk, M, runs, a, b
+    torch.cuda.empty_cache()
+
+
 def phase_timings(launches: dict, err: dict) -> list:
     K, H, W = 79, 375, 450
     Hc = -(-H // 2)
@@ -1180,6 +1220,7 @@ def main():
     pair_counts = phase_pair_path()
     phase_wide_k()
     banded_sweep_repeatable()
+    wavefront_sweep_repeatable()
     launches = {
         "phase_messages_compact": main_counts["phase_messages_compact"],
         "phase_messages": full_counts["phase_messages"],

@@ -125,20 +125,6 @@ __device__ __forceinline__ void live_range(const Params& P, int s, int& lo,
   hi = (min(P.Bh - 1, s) + 1) * P.nb;
 }
 
-// Release and acquire at device scope, for the per-tile ready flags.
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
 // Phase A of step t for one tile of 32 lanes: beliefs of column c = t + 1
 // -> gD (and, backward, the node term of the bound), then the tile's ready
 // flag.  The additions follow solvers/banded.py::_beliefs term by term.
@@ -254,26 +240,6 @@ __device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE],
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
     belief_tile<BACKWARD>(P, t, tile, sm, epoch);
 }
-
-// send_lane's wait in phase B: the lanes of warp 0 poll the flags of
-// phase-A tiles first .. last of the step, one flag each (32 at a time),
-// until all have published the step's epoch; then the block passes a
-// barrier.  Nothing to wait for when last < first.
-struct TileWait {
-  const int* flags;
-  int first, last, epoch;
-  __device__ __forceinline__ void operator()() const {
-    if (threadIdx.y == 0) {
-      for (int j0 = first; j0 <= last; j0 += TILE) {
-        const int j = j0 + threadIdx.x;
-        bool ready = j > last;
-        while (!__all_sync(0xffffffffu, ready))
-          if (!ready) ready = load_acquire(flags + j) >= epoch;
-      }
-    }
-    __syncthreads();
-  }
-};
 
 // Phase B of step t: the eight sends.  Heads are the group the pass writes at
 // column c (forward: A = (RT, DN); backward: B = (LT, UP)); tails are the

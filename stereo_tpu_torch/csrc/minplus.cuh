@@ -100,6 +100,43 @@ struct NoWait {
   __device__ __forceinline__ void operator()() const {}
 };
 
+// Release and acquire at device scope, for the fused sweeps' per-tile ready
+// flags: phase A's tile publishes the step's epoch with a release store
+// after a __syncthreads() (so every thread's writes of the tile come
+// first); a phase-B job acquires it before it reads what the tile wrote.
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// send_lane's wait in the fused sweeps' phase B: the lanes of warp 0 poll
+// the flags of phase-A tiles first .. last of the step, one flag each (32
+// at a time), until all have published the step's epoch; then the block
+// passes a barrier.  Nothing to wait for when last < first.
+struct TileWait {
+  const int* flags;
+  int first, last, epoch;
+  __device__ __forceinline__ void operator()() const {
+    if (threadIdx.y == 0) {
+      for (int j0 = first; j0 <= last; j0 += TILE) {
+        const int j = j0 + threadIdx.x;
+        bool ready = j > last;
+        while (!__all_sync(0xffffffffu, ready))
+          if (!ready) ready = load_acquire(flags + j) >= epoch;
+      }
+    }
+    __syncthreads();
+  }
+};
+
 // One send for the lane of the calling thread, done together by the
 // blockDim.y threads that share threadIdx.x:
 //
@@ -118,8 +155,8 @@ struct NoWait {
 //      (stage_copy, asynchronous in shared memory) and the first pass's
 //      targets xt into registers;
 //   2. wait(): a block-wide wait of the caller's for the state that g and m
-//      hold (the banded sweep's per-tile ready flags; NoWait elsewhere) --
-//      the problem loads above are in flight meanwhile;
+//      hold (the fused sweeps' per-tile ready flags, TileWait; NoWait
+//      elsewhere) -- the problem loads above are in flight meanwhile;
 //   3. the state's: h = g - m into the staging area, through L2 (__ldcg:
 //      g and m may have been written by other blocks of the same launch,
 //      and the non-coherent read-only path must not serve them).

@@ -19,19 +19,17 @@
 // Design.  The problem's skewed column arrays are read where they lie; a
 // shift of the plain version (the up neighbour is lane y - 1 of the previous
 // column, the down neighbour lane y + 1 of the next) is index arithmetic
-// with the guard before the load.  A step has two phases with a grid-wide
-// barrier after each (4 T barriers a sweep): phase A forms the node beliefs
-// of column c from the eight incident buffers and writes gamma * belief
-// (backward: minus its minimum, which goes to the bound) to the scratch
-// column gD; phase B does the four sends of the step: two head-sends at
-// column c, each reading gD and the old message of its own lane, and two
-// tail-sends into column c + 1 (forward) or c - 1 (backward), reading gD of
-// lane y and of lane y - 1 (forward) or y + 1 (backward).  The tail-sends of
-// step c write the column that the next step's beliefs read: the second
-// barrier orders them.  The barrier is cooperative_groups' grid.sync(): the
-// kernel is persistent, launched with cudaLaunchCooperativeKernel on a grid no
-// larger than what is resident at once (a larger grid is refused by the
-// launch, it cannot deadlock), and its blocks stride over the step's jobs.
+// with the guard before the load.  A step has two phases: phase A forms the
+// node beliefs of column c from the eight incident buffers and writes
+// gamma * belief (backward: minus its minimum, which goes to the bound) to
+// the scratch column gD, one tile of 32 lanes at a time; phase B does the
+// four sends of the step: two head-sends at column c, each reading gD and
+// the old message of its own lane, and two tail-sends into column c + 1
+// (forward) or c - 1 (backward), reading gD of lane y and of lane y - 1
+// (forward) or y + 1 (backward).  The kernel is persistent, launched with
+// cudaLaunchCooperativeKernel on a grid no larger than what is resident at
+// once (a larger grid is refused by the launch, it cannot hang), and its
+// blocks stride over a phase's tiles and jobs.
 //
 // A job is one send for a tile of 32 neighbouring lanes, done by a block of
 // 32 x target_blocks(K) threads (minplus.cuh::send_lane; at most 12 warps,
@@ -42,9 +40,37 @@
 //
 // What bounds it: per sweep 8 sends x K^2 x 6 float32 instructions per pixel
 // against every live problem and message entry moved once per pass; at teddy
-// K = 79 the operations are the larger bound.  What one measures on top is
-// the 4 T barriers and the thin parallelism of a step (at most
-// 4 x ceil(min(H, W) / 32) jobs for 132 SMs); PERF.md has the numbers.
+// K = 79 the operations are the larger bound, 0.755 ms.  What one measures
+// on top (PERF.md) is a fixed cost of every one of the 2 T steps -- grid
+// barriers over the resident blocks and chains of dependent global round
+// trips -- and the thin parallelism of a step (at most
+// 4 x ceil(min(H, W) / 32) jobs for 132 SMs).  What the design does about
+// the fixed cost, as csrc/banded_kernel.cu does (kernel 6 is kernel 5
+// without seams):
+//   - one grid.sync() a step, after phase B: the tail-sends of step t write
+//     the column that step t + 1's beliefs read, and step t + 1's beliefs
+//     overwrite the gD that step t's sends read.  Within a step, phase B
+//     waits for phase A through per-tile ready flags: the tile's block
+//     publishes the step's epoch with a release store, and a job acquires
+//     the flags of the tiles it needs (sends_step states the rule) -- but
+//     not of a tile its own block wrote in this step's phase A: the
+//     __syncthreads() that ends belief_tile already ordered that one, and
+//     the blocks that run phase A are the last to reach phase B;
+//   - no load waits for another load: phase A issues the nine loads of a
+//     target at once, and a phase-B job issues its problem loads (validity,
+//     weight, the staging of the source positions by cp.async, its targets)
+//     and reads the bound's accumulators before it waits for its flags, so
+//     after the wait one global round trip is left (gD and its own
+//     message).  (Measured, PERF.md: the loads before the wait were slower
+//     until the rule above took the acquire out of the path of the blocks
+//     that run phase A; relaxed polls and one acquire fence were no
+//     faster.)
+// No deadlock: a block runs all its phase-A tiles of a step before its
+// first phase-B job, phase A never waits, and every block is resident (the
+// cooperative launch refuses a grid that is not), so every flag a job waits
+// for gets published.
+// The arithmetic, and the order of every sum, are the plain version's: the
+// messages stay bit for bit.
 
 #include <cooperative_groups.h>
 
@@ -65,6 +91,7 @@ struct Params {
   float *MA, *MB;  // state, updated in place: [T+2, 2, K, H]
   float* gD;       // scratch [K, H]
   double* lbacc;   // scratch [LB_SLOTS, H]
+  int* flags;      // scratch [ceil(H / 32)]: phase A's per-tile ready flags
   double* lb;      // out [1]
   float* gstage;   // scratch: grid x stage_floats(K), or null (plan_stage)
   float tol;
@@ -75,7 +102,7 @@ struct Params {
 // (ops/wavefront_kernel.py builds it in this order)
 enum Ptr {
   P_THETA, P_D0, P_QA, P_QB, P_AA, P_AB, P_VA, P_VB, P_GAMMA,
-  P_MA, P_MB, P_GD, P_LBACC, P_LB, P_COUNT
+  P_MA, P_MB, P_GD, P_LBACC, P_FLAGS, P_LB, P_COUNT
 };
 
 __host__ __device__ inline int tiles(int n) { return (n + TILE - 1) / TILE; }
@@ -91,19 +118,20 @@ __device__ __forceinline__ void live_range(const Params& P, int s, int& lo,
   hi = min(P.H - 1, s) + 1;
 }
 
-// Phase A of step t: beliefs of column c = t + 1 -> gD (and, backward, the
-// node term of the bound).  The additions follow
-// solvers/wavefront.py::_beliefs_col term by term.  Thread y sums the labels
-// k = (p KT + j) blockDim.y + y, j < KT, in passes p; backward, the sums of
-// the passes before the last wait in gD for the step's minimum.
+// Phase A of step t for one tile of 32 lanes: beliefs of column c = t + 1
+// -> gD (and, backward, the node term of the bound), then the tile's ready
+// flag.  The additions follow solvers/wavefront.py::_beliefs_col term by
+// term.  Thread y sums the labels k = (p KT + j) blockDim.y + y, j < KT, in
+// passes p; backward, the sums of the passes before the last wait in gD for
+// the step's minimum.
 template <bool BACKWARD>
-__device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE]) {
+__device__ void belief_tile(const Params& P, int t, int tile,
+                            float (*sm)[TILE], int epoch) {
   const int K = P.K, H = P.H, c = t + 1, ny = blockDim.y;
   const int npass = target_passes(K);
   const long long KH = (long long)K * H;
   int lo, hi;
   live_range(P, t, lo, hi);
-  const int ntiles = tiles(hi - lo);
   const float* th = P.theta + c * KH;
   const float* A0 = P.MA + 2LL * c * KH;
   const float* A1 = A0 + KH;
@@ -113,65 +141,98 @@ __device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE]) {
   const float* Am1 = Am0 + KH;
   const float* Bp0 = P.MB + 2LL * (c + 1) * KH;
   const float* Bp1 = Bp0 + KH;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int l = lo + tile * TILE + threadIdx.x;
-    const bool active = l < hi;
-    float D[KT];
-    float part = CUDART_INF_F;
-    float gam = 0.0f;
+  const int l = lo + tile * TILE + threadIdx.x;
+  const bool active = l < hi;
+  float D[KT];
+  float part = CUDART_INF_F;
+  float gam = 0.0f;
+  double lb_old = 0.0;
+  if (active) {
+    if (BACKWARD && threadIdx.y == 0) lb_old = P.lbacc[l];
+    gam = P.gamma[(long long)c * H + l];
+    const bool up_in = l >= 1, dn_in = l + 1 < H;
+    for (int p = 0; p < npass; ++p) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const int k = (p * KT + j) * ny + threadIdx.y;
+        if (k < K) {
+          const long long o = (long long)k * H + l;
+          float d = th[o] + A0[o];
+          d = d + A1[o];
+          d = d + B0[o];
+          d = d + B1[o];
+          d = d + Am0[o];
+          d = d + (up_in ? Am1[o - 1] : 0.0f);
+          d = d + Bp0[o];
+          d = d + (dn_in ? Bp1[o + 1] : 0.0f);
+          D[j] = d;
+          part = fminf(part, d);
+          if (!BACKWARD)
+            P.gD[o] = gam * d;
+          else if (p + 1 < npass)
+            P.gD[o] = d;  // corrected below
+        }
+      }
+    }
+  }
+  if (BACKWARD) {
+    const float vmin = block_min_over_y(part, sm);
+    // every live lane holds a pixel: the plain version's pix mask is 1
+    if (active && threadIdx.y == 0) P.lbacc[l] = lb_old + (double)vmin;
     if (active) {
-      gam = P.gamma[(long long)c * H + l];
-      const bool up_in = l >= 1, dn_in = l + 1 < H;
       for (int p = 0; p < npass; ++p) {
 #pragma unroll
         for (int j = 0; j < KT; ++j) {
           const int k = (p * KT + j) * ny + threadIdx.y;
           if (k < K) {
-            const long long o = (long long)k * H + l;
-            float d = th[o] + A0[o];
-            d = d + A1[o];
-            d = d + B0[o];
-            d = d + B1[o];
-            d = d + Am0[o];
-            d = d + (up_in ? Am1[o - 1] : 0.0f);
-            d = d + Bp0[o];
-            d = d + (dn_in ? Bp1[o + 1] : 0.0f);
-            D[j] = d;
-            part = fminf(part, d);
-            if (!BACKWARD)
-              P.gD[o] = gam * d;
-            else if (p + 1 < npass)
-              P.gD[o] = d;  // corrected below
-          }
-        }
-      }
-    }
-    if (BACKWARD) {
-      const float vmin = block_min_over_y(part, sm);
-      // every live lane holds a pixel: the plain version's pix mask is 1
-      if (active && threadIdx.y == 0) P.lbacc[l] += (double)vmin;
-      if (active) {
-        for (int p = 0; p < npass; ++p) {
-#pragma unroll
-          for (int j = 0; j < KT; ++j) {
-            const int k = (p * KT + j) * ny + threadIdx.y;
-            if (k < K) {
-              float* o = P.gD + (long long)k * H + l;
-              *o = gam * ((p + 1 < npass ? *o : D[j]) - vmin);
-            }
+            float* o = P.gD + (long long)k * H + l;
+            *o = gam * ((p + 1 < npass ? *o : D[j]) - vmin);
           }
         }
       }
     }
   }
+  // the tile is ready: the barrier orders every thread's gD writes (and
+  // message reads) before thread 0's release of the flag
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    store_release(P.flags + tile, epoch);
+}
+
+// Phase A of step t: every tile of the step's live lanes that falls to this
+// block.  It never waits on another block.
+template <bool BACKWARD>
+__device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE],
+                             int epoch) {
+  int lo, hi;
+  live_range(P, t, lo, hi);
+  const int ntiles = tiles(hi - lo);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+    belief_tile<BACKWARD>(P, t, tile, sm, epoch);
 }
 
 // Phase B of step t: the four sends.  Heads are the group the pass writes at
 // column c (forward: A = (RT, DN); backward: B = (LT, UP)); tails are the
 // other group, written into column cn = c + 1 (forward) or c - 1 (backward).
+//
+// A job waits for the phase-A tiles of the step that cover the lanes of
+// this rule (ops/wavefront_kernel.py::wait_lanes is the same rule, and
+// tests/test_torch_wavefront.py checks it against the plain version's
+// index maps), l0 the first lane of the job's tile:
+//   head-sends    [l0, l0 + 32)       gD read at its own lane; the message
+//                                     written at lane l is read by phase A
+//                                     at lane l
+//   tail-sends    forward  [l0 - 1, l0 + 32)
+//                 backward [l0, l0 + 33)
+//                                     gD at l and l -/+ 1; the message
+//                                     written at lane l is read by phase A
+//                                     at lane l (d = 0) and l -/+ 1 (d = 1:
+//                                     Bp1[o + 1], Am1[o - 1] in belief_tile)
+// clipped to the step's live lanes.  So phase B reads gD only once it is
+// written, and overwrites a message only once phase A has read it.
 template <int KERNEL, bool BACKWARD, bool SMEM>
 __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
-                           float* stage) {
+                           float* stage, int epoch) {
   const int K = P.K, H = P.H, c = t + 1;
   const int cn = BACKWARD ? c - 1 : c + 1;
   const long long KH = (long long)K * H;
@@ -195,16 +256,28 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
     const int rest = head ? job : job - 2 * n_h;
     const int n_seg = head ? n_h : n_t;
     const int d = rest / n_seg;  // direction within the group
-    const int i = (rest - d * n_seg) * TILE + threadIdx.x;
+    const int tile = rest - d * n_seg;
+    const int l0 = (head ? hlo : tlo) + tile * TILE;
+    const int l = l0 + threadIdx.x;
+    // the phase-A tiles of the step that this job waits for (see above);
+    // a tile that this block wrote itself needs no flag: the
+    // __syncthreads() that ends belief_tile ordered it before the job
+    const int wlo = max(head || BACKWARD ? l0 : l0 - 1, hlo);
+    const int whi = min(head || !BACKWARD ? l0 + TILE : l0 + TILE + 1, hhi);
+    const int first = (wlo - hlo) / TILE;
+    int last = wlo < whi ? (whi - 1 - hlo) / TILE : -1;
+    bool own = true;
+    for (int j = first; j <= last; ++j)
+      own = own && j % (int)gridDim.x == (int)blockIdx.x;
+    if (own) last = -1;
+    const TileWait wait{P.flags, first, last, epoch};
 
     bool in = false, active = false;
     const float *g = nullptr, *xt = nullptr, *ys = nullptr;
     float* m = nullptr;
     float a = 0.0f;
-    int l = 0;
     if (head) {
       // head-send, direction d of the heads' group, at column c
-      l = hlo + i;
       if (l < hhi) {
         in = true;
         active = vh[(2LL * c + d) * H + l] > 0.0f;
@@ -219,7 +292,6 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
       // tail-send, direction d of the tails' group, into column cn; d = 0
       // takes the source at the same lane, d = 1 at the vertical neighbour
       // (forward: l - 1, backward: l + 1)
-      l = tlo + i;
       const int ls = d == 0 ? l : (BACKWARD ? l + 1 : l - 1);
       if (l < thi && ls >= 0 && ls < H) {
         in = true;
@@ -232,14 +304,20 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
         a = at[(2LL * cn + d) * H + l];
       }
     }
-    const float vmin = send_lane<KERNEL, true, SMEM>(in, active, g, H, m, H,
-                                                     xt, H, ys, H, a, P.tol,
-                                                     K, m, H, sm, stage);
+    // the bound's slot was last written by an earlier step: read it now
+    double* lb_slot = P.lbacc + (1 + (head ? 0 : 2) + d) * (long long)H + l;
+    const double lb_old =
+        BACKWARD && in && threadIdx.y == 0 ? __ldcg(lb_slot) : 0.0;
+    const float vmin = send_lane<KERNEL, true, SMEM>(
+        in, active, g, H, m, H, xt, H, ys, H, a, P.tol, K, m, H, sm, stage,
+        wait);
     if (BACKWARD && active && threadIdx.y == 0)
-      P.lbacc[(1 + (head ? 0 : 2) + d) * (long long)H + l] += (double)vmin;
+      *lb_slot = lb_old + (double)vmin;
   }
 }
 
+// __launch_bounds__: ptxas then takes 80 registers (and spills ~88 bytes);
+// without it 96-128, and the sweep runs slower (PERF.md)
 template <int KERNEL, bool SMEM>
 __global__ void __launch_bounds__(TILE * MAX_TB)
     wavefront_sweep_kernel(const Params P) {
@@ -251,21 +329,29 @@ __global__ void __launch_bounds__(TILE * MAX_TB)
   cg::grid_group grid = cg::this_grid();
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  // the bound's accumulators are first used after the forward pass
-  for (long long i = (long long)blockIdx.x * nthreads + tid;
-       i < (long long)LB_SLOTS * P.H; i += (long long)gridDim.x * nthreads)
+  const long long gtid = (long long)blockIdx.x * nthreads + tid;
+  const long long gthreads = (long long)gridDim.x * nthreads;
+  // the bound's accumulators and the ready flags start at zero; a flag
+  // holds the epoch of the step whose beliefs its tile last published:
+  // forward step t 1 + t, backward step t 2 T - t, increasing through the
+  // launch, so no flag is reset between steps
+  for (long long i = gtid; i < (long long)LB_SLOTS * P.H; i += gthreads)
     P.lbacc[i] = 0.0;
+  for (long long i = gtid; i < tiles(P.H); i += gthreads) P.flags[i] = 0;
+  grid.sync();
 
+  // one grid.sync a step: it orders the step's sends (which write the
+  // messages that the next step's beliefs read, and read the gD that they
+  // overwrite) before the next step; within a step the ready flags order
+  // phase B after phase A
   for (int t = 0; t < P.T; ++t) {
-    beliefs_step<false>(P, t, sm);
-    grid.sync();
-    sends_step<KERNEL, false, SMEM>(P, t, sm, stage);
+    beliefs_step<false>(P, t, sm, 1 + t);
+    sends_step<KERNEL, false, SMEM>(P, t, sm, stage, 1 + t);
     grid.sync();
   }
   for (int t = P.T - 1; t >= 0; --t) {
-    beliefs_step<true>(P, t, sm);
-    grid.sync();
-    sends_step<KERNEL, true, SMEM>(P, t, sm, stage);
+    beliefs_step<true>(P, t, sm, 2 * P.T - t);
+    sends_step<KERNEL, true, SMEM>(P, t, sm, stage, 2 * P.T - t);
     grid.sync();
   }
 
@@ -273,7 +359,8 @@ __global__ void __launch_bounds__(TILE * MAX_TB)
   // order (the same bits from run to run)
   if (blockIdx.x == 0) {
     double s = 0.0;
-    for (int i = tid; i < LB_SLOTS * P.H; i += nthreads) s += P.lbacc[i];
+    for (int i = tid; i < LB_SLOTS * P.H; i += nthreads)
+      s += __ldcg(P.lbacc + i);
     red[tid] = s;
     __syncthreads();
     if (tid == 0) {
@@ -324,6 +411,7 @@ extern "C" int wavefront_sweep_f32(const void* const* ptrs, const int* dims,
   P.MA = (float*)ptrs[P_MA]; P.MB = (float*)ptrs[P_MB];
   P.gD = (float*)ptrs[P_GD];
   P.lbacc = (double*)ptrs[P_LBACC]; P.lb = (double*)ptrs[P_LB];
+  P.flags = (int*)ptrs[P_FLAGS];
   P.tol = tol;
   P.K = dims[0]; P.H = dims[1]; P.W = dims[2];
   P.T = P.H + P.W - 1;

@@ -25,7 +25,10 @@ problem slab, its padding of K and H to tile multiples, its resident column
 windows, DMA semaphores and lane rotations over: it reads the ``_Skewed``
 arrays where they lie and turns every shift into index arithmetic, with the
 guard before the load.  A step is two phases (beliefs, then the four sends)
-with a grid-wide barrier after each; the kernel is persistent and launched
+and one grid-wide barrier, after the sends; a send job waits only for the
+tiles of beliefs it needs, through per-tile ready flags (``wait_lanes``
+states the rule, tests/test_torch_wavefront.py checks it), and issues its
+problem loads before it waits.  The kernel is persistent and launched
 cooperatively, so a grid that could not be resident at once is refused by the
 launch instead of hanging.  Only the lanes that hold a pixel at a step are
 visited.  Built with ``-fmad=false``: messages equal the plain version's bit
@@ -50,6 +53,7 @@ import ctypes
 import torch
 
 from stereo_tpu_torch.ops._launch import check_tensor, launch_staged
+from stereo_tpu_torch.ops.minplus import TILE
 
 # the least number of anti-diagonals: one, a grid of a single pixel
 MIN_T = 1
@@ -100,6 +104,32 @@ def check_limits(T: int):
                          f"kernel takes at least {MIN_T}")
 
 
+def live_lanes(H: int, W: int, t: int) -> tuple[int, int]:
+    """Lanes [lo, hi) of step t's column that hold pixels (empty outside
+    0 .. T-1); phase A's tile j of the step is lanes lo + 32 j + [0, 32)."""
+    if t < 0 or t >= H + W - 1:
+        return 0, 0
+    return max(0, t - W + 1), min(H - 1, t) + 1
+
+
+def wait_lanes(H: int, W: int, t: int, backward: bool, seg: int,
+               tile: int) -> tuple[int, int]:
+    """Lanes [lo, hi) of step t's phase A that job (seg, tile) of phase B
+    waits for: it reads their gD, or overwrites a message that their beliefs
+    read.  seg 0, 1: the head-sends (directions d = 0, 1); seg 2, 3: the
+    tail-sends.  The rule of csrc/wavefront_kernel.cu::sends_step, clipped
+    to the step's live lanes.  (The kernel acquires no flag for a tile that
+    the job's own block wrote: its block barrier already orders it.)"""
+    hlo, hhi = live_lanes(H, W, t)
+    if seg < 2:  # head-sends: own lane
+        lo = hlo + tile * TILE
+        hi = lo + TILE
+    else:  # tail-sends: own lane and the vertical neighbour
+        l0 = live_lanes(H, W, t - 1 if backward else t + 1)[0] + tile * TILE
+        lo, hi = (l0, l0 + TILE + 1) if backward else (l0 - 1, l0 + TILE)
+    return max(lo, hlo), min(hi, hhi)
+
+
 def sweep_wavefront(sk, M):
     """One raster-order sweep (forward + backward) -> (state, lower bound).
 
@@ -123,10 +153,11 @@ def sweep_wavefront(sk, M):
     lib = _library()
     gD = torch.empty((K, H), dtype=torch.float32, device=dev)
     lbacc = torch.empty((LB_SLOTS, H), dtype=torch.float64, device=dev)
+    flags = torch.empty((-(-H // TILE),), dtype=torch.int32, device=dev)
     lb = torch.empty((), dtype=torch.float64, device=dev)
-    ptrs = (ctypes.c_void_p * (len(tensors) + 3))(
+    ptrs = (ctypes.c_void_p * (len(tensors) + 4))(
         *(t.data_ptr() for t in tensors), gD.data_ptr(), lbacc.data_ptr(),
-        lb.data_ptr())
+        flags.data_ptr(), lb.data_ptr())
     dims = (ctypes.c_int * 3)(K, H, W)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -20,6 +20,7 @@ from stereo_tpu.solvers import banded as j_banded
 from stereo_tpu.solvers import wavefront as j_wf
 from stereo_tpu_torch import convert, testing
 from stereo_tpu_torch.ops import wavefront_kernel as t_wfk
+from stereo_tpu_torch.ops.minplus import TILE
 from stereo_tpu_torch.solvers import banded as t_banded
 from stereo_tpu_torch.solvers import wavefront as t_wf
 
@@ -341,3 +342,118 @@ def test_kernel_limits_are_stated_and_checked():
     shapes = t_wfk.problem_shapes(5, 4, 7)
     assert shapes["MA"] == shapes["QB"] == (12, 2, 5, 4)
     assert shapes["gamma"] == (12, 4) and shapes["aA"] == (12, 2, 4)
+
+
+# -------------------------------------- the wait rule of the fused sweep
+# H > W, W > H, a single row, a single column, and more than one tile of
+# live lanes (40 x 47, 70 x 33)
+WAIT_SIZES = [(9, 5), (5, 9), (1, 7), (7, 1), (40, 47), (70, 33)]
+
+
+def _job_lanes(H, W, t, backward, seg, tile):
+    """Target lanes of job (seg, tile) of step t's phase B, as
+    csrc/wavefront_kernel.cu::sends_step enumerates them: heads (seg 0, 1)
+    at the step's live lanes, tails (seg 2, 3) at those of the step they
+    write into."""
+    step = t if seg < 2 else (t - 1 if backward else t + 1)
+    lo, hi = t_wfk.live_lanes(H, W, step)
+    lanes = lo + tile * TILE + np.arange(TILE)
+    return lanes[lanes < hi]
+
+
+def _capture_step(sk, t, backward, monkeypatch):
+    """Run one plain step on zero messages with the sends replaced by a
+    recorder: gD = lane + 1 at label 0 (and 0 at label 1, so the backward
+    step's minimum is 0), so each send's source holds at every lane the gD
+    lane it reads (+1, 0 = none); every send writes 1, so the entries that
+    change are what the step writes.  -> ((MA, MB), sources by segment)."""
+    sources = []
+
+    def fake(src, old, *args, **kw):
+        sources.append(src)
+        shape = torch.broadcast_shapes(src.shape, old.shape)
+        return (torch.ones(shape, dtype=old.dtype),
+                torch.zeros(shape[:-2] + shape[-1:], dtype=old.dtype))
+
+    monkeypatch.setattr(t_wf, "_send_head", fake)
+    monkeypatch.setattr(t_wf, "_send_tail", fake)
+    sk.theta.zero_()
+    sk.theta[t + 1, 0] = torch.arange(1, sk.H + 1, dtype=sk.theta.dtype)
+    sk.gamma.fill_(1.0)
+    M = tuple(torch.zeros_like(a) for a in (sk.QA, sk.QB))
+    if backward:
+        M, _ = t_wf._bwd_col(sk, M, t)
+    else:
+        M = t_wf._fwd_col(sk, M, t)
+    monkeypatch.undo()
+    heads, tails = sources  # [1 | 2, K, H] each
+    return M, {0: heads[0, 0], 1: heads[-1, 0], 2: tails[0, 0],
+               3: tails[1, 0]}
+
+
+def _readers(psk, t, backward, group, d):
+    """Lanes of step t's phase A (the plain _beliefs_col, live lanes only)
+    that read each lane of message group ``group`` (0: MA, 1: MB) at the
+    column the step's sends write it: the group holds a one-hot at (label
+    k, lane k), so belief (k, l) is non-zero iff lane l reads lane k.
+    -> {lane k: set of reading lanes}."""
+    H, c = psk.H, t + 1
+    M = [torch.zeros_like(psk.QA), torch.zeros_like(psk.QB)]
+    heads = 1 if backward else 0
+    col = c if group == heads else (c - 1 if backward else c + 1)
+    M[group][col, d] = torch.eye(psk.K, dtype=M[group].dtype)[:, :H]
+    D = t_wf._beliefs_col(psk, *M, c)
+    lo, hi = t_wfk.live_lanes(H, psk.W, t)
+    hit = D[:, lo:hi].numpy() != 0
+    return {k: set((lo + np.flatnonzero(hit[k])).tolist())
+            for k in range(H) if hit[k].any()}
+
+
+@pytest.mark.parametrize("H,W", WAIT_SIZES)
+def test_wait_rule_covers_every_dependency(H, W, monkeypatch):
+    """ops/wavefront_kernel.py::wait_lanes (the rule by which the fused
+    sweep's phase-B jobs wait for phase A) against the plain version's own
+    index maps: for every step, pass, job and written lane, the gD lane the
+    job reads and every lane of phase A that reads the message it overwrites
+    lie in the job's wait set."""
+    sk = t_wf._Skewed(*T(testing.trws_problem(0, 2, H, W)), 1, 1.0)
+    # the probe problem: one label per lane, theta = 0
+    psk = t_wf._Skewed(*T(testing.trws_problem(0, max(H, 2), H, W)), 1, 1.0)
+    psk.theta.zero_()
+    tiles = lambda n: -(-n // TILE)
+    checked = 0
+    for backward in (False, True):
+        heads, tails = (1, 0) if backward else (0, 1)
+        for t in range(sk.T):
+            (MA, MB), src = _capture_step(sk, t, backward, monkeypatch)
+            c = t + 1
+            cn = c - 1 if backward else c + 1
+            lo, hi = t_wfk.live_lanes(H, W, t)
+            tlo, thi = t_wfk.live_lanes(H, W, t - 1 if backward else t + 1)
+            groups = (MA, MB)
+            for seg in range(4):
+                group, d = (heads, seg) if seg < 2 else (tails, seg - 2)
+                col = c if seg < 2 else cn
+                written = set(np.flatnonzero(
+                    groups[group][col, d, 0].numpy() != 0).tolist())
+                readers = _readers(psk, t, backward, group, d)
+                n = tiles(hi - lo) if seg < 2 else tiles(thi - tlo)
+                for tile in range(n):
+                    wlo, whi = t_wfk.wait_lanes(H, W, t, backward, seg, tile)
+                    assert lo <= wlo and whi <= hi
+                    lanes = _job_lanes(H, W, t, backward, seg, tile)
+                    for x in lanes:
+                        if x not in written:
+                            continue  # not written: a dead edge
+                        ls = int(src[seg][x]) - 1
+                        where = (H, W, t, backward, seg, tile, x)
+                        assert lo <= ls < hi, ("gD lane not live", where)
+                        assert wlo <= ls < whi, ("gD lane not waited", where)
+                        for r in readers.get(x, ()):
+                            assert wlo <= r < whi, ("reader not waited",
+                                                    where, r)
+                        checked += 1
+                    written.difference_update(lanes.tolist())
+                # every written lane belongs to some job of its segment
+                assert not written, (t, backward, seg, written)
+    assert checked > 0
