@@ -9,7 +9,9 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
   2. holds each kernel against its plain PyTorch version on the card, bit for
      bit: the two phase kernels for kernel in {1, 2}, K in {2, 8, 15, 79},
      37x53 and 375x450 (odd H, ragged edges, border pixels with valid =
-     alpha = 0); the column send for K in {2, 8, 15, 79, 300} x kernel x L
+     alpha = 0), and at 37x53 K in {3, 17, 41, 97, 202} (beyond one pass
+     of a block's targets), alpha < 0 on a third of the pixels, and tol in
+     {1e-3, 1e6}; the column send for K in {2, 8, 15, 79, 300} x kernel x L
      in {53, 1536} x batch in {1, 2}, and K = 1000 (staged in global
      scratch; L = 53 and L = 64,000, more tiles than resident blocks); the
      fused banded sweep on twelve problems up to teddy K = 79 and K = 202
@@ -163,6 +165,12 @@ WAVEFRONT_CASES = ((3, 6, 9), (4, 7, 6), (3, 40, 9), (3, 9, 40), (3, 2, 9),
 # pixels) than blocks resident at once (at most 5 blocks of 384 threads on
 # each of 132 multiprocessors), so that a block walks several of them
 SEND_PAIR_K = (2, 8, 15, 79, 300)
+# the phase kernels' further comparisons at 37x53: K not a multiple of a
+# thread's 20 targets or of a staged chunk of 32 sources, and K beyond one
+# pass of a block's 8 x 20 targets; tol with almost every term truncated,
+# and with none
+PHASE_K = (3, 17, 41, 97, 202)
+PHASE_TOL = (1e-3, 1e6)
 GLOBAL_STAGE_K = 1000
 GLOBAL_STAGE_JOBS = 2000
 # teddy at --grid-step 30: 196 RANSAC + 6 fronto-parallel proposals
@@ -234,44 +242,79 @@ def phase_device_and_build():
 # ------------------------------------------- 2. kernels vs plain versions
 def phase_kernels_vs_plain() -> dict:
     err = {name: 0.0 for name in KERNELS}
+    cases = phase_vs_plain(err) + send_vs_plain(err)
+    cases += banded_sweep_vs_plain(err) + pair_vs_plain(err)
+    cases += wavefront_sweep_vs_plain(err)
+    say("kernels_vs_plain", cases=cases,
+        tolerance="bitwise (float32); the fused sweeps' lower bounds rtol "
+                  "1e-5", max_abs_err=err)
+    return err
+
+
+def phase_case(err: dict, K: int, H: int, W: int, kernel: int, tol: float,
+               seed: int, full_seed: int | None = None,
+               negative: bool = False) -> int:
+    """Both phase kernels against their plain versions on one problem, bit
+    for bit: the compact one on the half-grid of H x W (inputs from
+    ``seed``), the full-grid one on H x W with either colour as the source
+    (from ``full_seed`` + colour; ``full_seed`` defaults to ``seed``).
+    ``negative``: a < 0 on a random third of the pixels."""
+    what = f"K={K}, {H}x{W}, kernel={kernel}, tol={tol}, negative={negative}"
+    inp = testing.phase_inputs(seed, K, -(-H // 2), W)
+    if negative:
+        inp = testing.negate_alphas(inp, seed)
+    args = on_card(inp, COMPACT_ARGS)
+    got = phase_kernel.phase_messages_compact(*args, tol, kernel)
+    torch.cuda.synchronize()
+    ref = phase_kernel.phase_messages_compact_ref(*args, tol, kernel)
+    for g, r, name in zip(got, ref, ("newM_s", "newM_o", "vmin_s", "vmin_o")):
+        err["phase_messages_compact"] = max(err["phase_messages_compact"],
+                                            float((g - r).abs().max()))
+        check(torch.equal(g, r),
+              f"compact kernel != plain version ({name}, {what})")
+    full_seed = seed if full_seed is None else full_seed
+    for color in (0, 1):
+        inp = testing.phase_inputs_full(full_seed + color, K, H, W, color)
+        if negative:
+            inp = testing.negate_alphas(inp, full_seed + color)
+        args = on_card(inp, FULL_ARGS)
+        got = phase_kernel.phase_messages(*args, tol, kernel)
+        torch.cuda.synchronize()
+        ref = phase_kernel.phase_messages_ref(*args, tol, kernel)
+        for g, r, name in zip(got, ref, ("newM", "vmins")):
+            err["phase_messages"] = max(err["phase_messages"],
+                                        float((g - r).abs().max()))
+            check(torch.equal(g, r), f"full-grid kernel != plain version "
+                                     f"({name}, {what}, color={color})")
+    return 3
+
+
+def phase_vs_plain(err: dict) -> int:
+    """The two phase kernels against their plain versions, bit for bit: K in
+    {2, 8, 15, 79} at 37x53 and 375x450 (odd H, ragged edges, border pixels
+    with valid = alpha = 0); K in PHASE_K (K not a multiple of a register
+    block or of a staged chunk, and K beyond one pass of a block's targets),
+    a < 0 on a third of the pixels (the plain term's branch) and tol in
+    PHASE_TOL (almost every term truncated, none) at 37x53; and a random,
+    non-checkerboard mask for the full-grid kernel (divergent warps)."""
     cases = 0
     for (H, W) in ((37, 53), (375, 450)):
-        Hc = -(-H // 2)
         for K in (2, 8, 15, 79):
             for kernel in (1, 2):
-                tol = 1.1 if kernel == 1 else 0.9
-                args = on_card(testing.phase_inputs(K + H, K, Hc, W),
-                               COMPACT_ARGS)
-                got = phase_kernel.phase_messages_compact(*args, tol, kernel)
-                torch.cuda.synchronize()
-                ref = phase_kernel.phase_messages_compact_ref(*args, tol,
-                                                              kernel)
-                for g, r, what in zip(got, ref, ("newM_s", "newM_o",
-                                                 "vmin_s", "vmin_o")):
-                    err["phase_messages_compact"] = max(
-                        err["phase_messages_compact"],
-                        float((g - r).abs().max()))
-                    if not torch.equal(g, r):
-                        raise AssertionError(
-                            f"compact kernel != plain version ({what}, K={K},"
-                            f" {Hc}x{W}, kernel={kernel})")
-                for color in (0, 1):
-                    args = on_card(testing.phase_inputs_full(
-                        K + W + color, K, H, W, color), FULL_ARGS)
-                    got = phase_kernel.phase_messages(*args, tol, kernel)
-                    torch.cuda.synchronize()
-                    ref = phase_kernel.phase_messages_ref(*args, tol, kernel)
-                    for g, r, what in zip(got, ref, ("newM", "vmins")):
-                        err["phase_messages"] = max(
-                            err["phase_messages"], float((g - r).abs().max()))
-                        if not torch.equal(g, r):
-                            raise AssertionError(
-                                f"full-grid kernel != plain version ({what}, "
-                                f"K={K}, {H}x{W}, kernel={kernel}, "
-                                f"color={color})")
-                cases += 3
-                del args, got, ref
+                cases += phase_case(err, K, H, W, kernel,
+                                    1.1 if kernel == 1 else 0.9, K + H,
+                                    full_seed=K + W)
         torch.cuda.empty_cache()
+    for kernel in (1, 2):
+        tol = 1.1 if kernel == 1 else 0.9
+        for K in PHASE_K:
+            cases += phase_case(err, K, 37, 53, kernel, tol, K + kernel)
+        for K in (17, 79):
+            cases += phase_case(err, K, 37, 53, kernel, tol, K + 7,
+                                negative=True)
+            for t in PHASE_TOL:
+                cases += phase_case(err, K, 37, 53, kernel, t, K + 11)
+    torch.cuda.empty_cache()
     # a non-checkerboard mask (divergent warps) must still be right
     inp = testing.phase_inputs_full(5, 15, 37, 53)
     inp["src_is_head"] = (np.random.default_rng(0).uniform(
@@ -279,14 +322,9 @@ def phase_kernels_vs_plain() -> dict:
     args = on_card(inp, FULL_ARGS)
     got = phase_kernel.phase_messages(*args, 1.1, 1)
     ref = phase_kernel.phase_messages_ref(*args, 1.1, 1)
-    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-        raise AssertionError("full-grid kernel != plain version (random mask)")
-    cases += 1 + send_vs_plain(err) + banded_sweep_vs_plain(err)
-    cases += pair_vs_plain(err) + wavefront_sweep_vs_plain(err)
-    say("kernels_vs_plain", cases=cases,
-        tolerance="bitwise (float32); the fused sweeps' lower bounds rtol "
-                  "1e-5", max_abs_err=err)
-    return err
+    check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+          "full-grid kernel != plain version (random mask)")
+    return cases + 1
 
 
 def pair_vs_plain(err: dict) -> int:
@@ -1124,31 +1162,41 @@ def wavefront_sweep_repeatable(K: int = 79, H: int = 375, W: int = 450):
     torch.cuda.empty_cache()
 
 
-def phase_timings(launches: dict, err: dict) -> list:
-    K, H, W = 79, 375, 450
+def phase_problems(K: int, H: int, W: int):
+    """(name, arguments on the card, shape, planes moved, pixels, sends) of
+    the two phase kernels at K labels on an H x W image: the compact one on
+    its half-grid (8 sends over ceil(H / 2) x W pixels), the full-grid one on
+    H x W (one send per direction and pixel)."""
     Hc = -(-H // 2)
+    yield ("phase_messages_compact",
+           on_card(testing.phase_inputs(1, K, Hc, W), COMPACT_ARGS),
+           dict(K=K, Hc=Hc, W=W), 31 * K + 24, Hc * W, 8 * Hc * W)
+    yield ("phase_messages",
+           on_card(testing.phase_inputs_full(1, K, H, W), FULL_ARGS),
+           dict(K=K, H=H, W=W), 18 * K + 13, H * W, 4 * H * W)
+    torch.cuda.empty_cache()
+
+
+def time_phase(K: int, H: int, W: int, reps: int = 20,
+               plain: bool = True) -> list:
+    """Rows of the two phase kernels (``phase_problems``): median ms of
+    ``reps`` launches, the plain versions' (``plain``) and the bounds."""
     rows = []
-    args = on_card(testing.phase_inputs(1, K, Hc, W), COMPACT_ARGS)
-    ms = time_ms(lambda: phase_kernel.phase_messages_compact(*args, 8.0, 1),
-                 20)
-    plain = time_ms(lambda: phase_kernel.phase_messages_compact_ref(
-        *args, 8.0, 1), 3, warmup=1)
-    # 8 sends (4 directions x 2 half-grids) over Hc*W pixels each
-    rows.append(dict(name="phase_messages_compact", ms=ms, plain_ms=plain,
-                     shape=dict(K=K, Hc=Hc, W=W),
-                     **bounds(31 * K + 24, Hc * W, K, 8 * Hc * W)))
-    del args
-    torch.cuda.empty_cache()
-    args = on_card(testing.phase_inputs_full(1, K, H, W), FULL_ARGS)
-    ms = time_ms(lambda: phase_kernel.phase_messages(*args, 8.0, 1), 20)
-    plain = time_ms(lambda: phase_kernel.phase_messages_ref(*args, 8.0, 1),
-                    3, warmup=1)
-    # one send (the selected variant) per direction at each of H*W pixels
-    rows.append(dict(name="phase_messages", ms=ms, plain_ms=plain,
-                     shape=dict(K=K, H=H, W=W),
-                     **bounds(18 * K + 13, H * W, K, 4 * H * W)))
-    del args
-    torch.cuda.empty_cache()
+    for name, args, shape, planes, pixels, sends in phase_problems(K, H, W):
+        fn = getattr(phase_kernel, name)
+        ref = getattr(phase_kernel, name + "_ref")
+        ms = time_ms(lambda: fn(*args, 8.0, 1), reps)
+        plain_ms = (time_ms(lambda: ref(*args, 8.0, 1), 3, warmup=1)
+                    if plain else None)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, shape=shape,
+                         **bounds(planes, pixels, K, sends)))
+        del args
+    return rows
+
+
+def phase_timings(launches: dict, err: dict) -> list:
+    K, H, W = FULL
+    rows = time_phase(K, H, W)
     # the column send at the shape a banded step gives it: the direction pair
     # of one group, K labels, all L lanes
     B, L = 2, banded.BandedSpec(H, W, BAND, BAND).L

@@ -41,6 +41,15 @@ inline int target_blocks(int K) {
   return (blocks + passes - 1) / passes;
 }
 
+// The same split for a kernel of its own shape: warps of a block for K
+// labels at KT_ targets a warp and MAXW warps at most.
+template <int KT_, int MAXW>
+inline int blocks_for(int K) {
+  const int blocks = (K + KT_ - 1) / KT_;
+  const int passes = (blocks + MAXW - 1) / MAXW;
+  return (blocks + passes - 1) / passes;
+}
+
 // Passes over the targets of a block of blockDim.y warps.
 __device__ __forceinline__ int target_passes(int K) {
   return ((K + KT - 1) / KT + (int)blockDim.y - 1) / (int)blockDim.y;

@@ -20,20 +20,27 @@ and a plain PyTorch version of the same math beside it:
 
 What bounds them on the card, per launch: the compact kernel moves
 (31 K + 24) planes of Hc x W float32 (23 K + 16 read, 8 K + 8 written), the
-full-grid kernel (18 K + 13) planes of H x W; both do K^2 min-plus steps of
-six float32 instructions (sub, abs or mul, min, mul, add, min) per pixel and
-direction.  At K = 79 the arithmetic is the larger bound (about 1.5x the
-bytes' time on an H100), at K = 15 the bytes.  All inputs must be finite
-(the kernel's fminf drops a NaN where torch.minimum would keep it).  The
-design: a thread owns one pixel of one direction, W is the contiguous axis
-(coalesced reads of every label plane), a block of running minima lives in
-registers (16 or 40 of them, picked per launch from K), K and the plane size
-are runtime arguments and the ragged edge is masked in the kernel, so no
-input is padded.  The full-grid kernel
-lays its threads out by colour so that a warp evaluates one variant only.
-Built with ``-fmad=false``: float32 results equal the plain versions bit for
-bit.  No single PyTorch call computes either function, so there is no library
-yardstick for them.
+full-grid kernel (18 K + 13) planes of H x W; both walk K^2 (target, source)
+terms per pixel and direction.  The kernels take the truncation out of that
+loop: for a >= 0, min_s h + a TR = min(min_s h + a |x - y|^k, min_s h + a tol)
+bit for bit (rounding is monotone), so a term is four issued float32
+instructions (sub, mul with |.|, add, min; kernel 2 one mul more) and the
+second minimum costs K operations per pixel.  A pixel with a < 0, where the
+identity fails, walks the plain term.  At K = 79 the issue slots are the
+bound (about 0.5 ms for the compact launch on an H100), at K = 15 the bytes.
+All inputs must be finite (the kernel's fminf drops a NaN where
+torch.minimum would keep it).  The design: a block covers 32 pixels along
+the contiguous W axis and all K targets, 20 per thread in registers on
+ceil(K / 20) warps (K above 160 in passes); the tile's sources are staged
+in shared memory in double-buffered chunks (cp.async), turned into
+h = g - m once, and walked once; the minimum over the targets is reduced
+across the warps and every output written once, normalised from
+registers.  K and the plane size are runtime arguments and the ragged
+edges are masked in the kernel, so no input is padded.  The full-grid
+kernel lays its threads out by colour so that a warp evaluates one variant
+only.  Built with ``-fmad=false``: float32 results equal the plain versions
+bit for bit.  No single PyTorch call computes either function, so there is
+no library yardstick for them.
 
 A wrapper takes its plain version only when its tensors lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts

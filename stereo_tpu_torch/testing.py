@@ -91,6 +91,20 @@ def phase_inputs_full(seed: int, K: int, H: int, W: int, color: int = 0,
     return {k: np.ascontiguousarray(v.astype(dtype)) for k, v in out.items()}
 
 
+def negate_alphas(inp: dict, seed: int, share: float = 1 / 3) -> dict:
+    """A copy of phase inputs (``phase_inputs`` / ``phase_inputs_full``) with
+    the edge weights negated at a random ``share`` of the pixels, in every
+    direction: the case in which a phase kernel may not hoist the
+    truncation out of its loop."""
+    out = dict(inp)
+    keys = [k for k in ("a_s", "a_o", "alphas") if k in inp]
+    flip = np.random.default_rng(seed).uniform(
+        size=inp[keys[0]].shape[1:]) < share
+    for k in keys:
+        out[k] = np.ascontiguousarray(np.where(flip[None], -inp[k], inp[k]))
+    return out
+
+
 def send_inputs(seed: int, B: int, K: int, L: int, dtype=np.float32):
     """Random inputs of ``ops.minplus.minplus_send``: (hs, p, r [B, K, L],
     alpha [B, L])."""

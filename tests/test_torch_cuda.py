@@ -35,31 +35,50 @@ def cuda():
     return torch.device("cuda")
 
 
+# K not a multiple of a thread's 20 targets or of a staged chunk of 32
+# sources, and beyond one pass of a block's 8 x 20 targets (97 is not, 202
+# is); a < 0 at a third of the pixels (the kernels' plain-term branch); tol
+# with almost every term truncated, and with none
+PHASE_SHAPES = [(2, 5, 9), (15, 19, 53), (79, 19, 53), (3, 19, 53),
+                (17, 19, 53), (41, 19, 53), (97, 19, 53), (202, 19, 53)]
+PHASE_VARIANTS = [(None, False), (None, True), (1e-3, False), (1e6, False)]
+
+
+@pytest.mark.parametrize("tol,negative", PHASE_VARIANTS)
 @pytest.mark.parametrize("kernel", [1, 2])
-@pytest.mark.parametrize("K,Hc,W", [(2, 5, 9), (15, 19, 53), (79, 19, 53)])
-def test_compact_kernel_bitwise_on_card(cuda, K, Hc, W, kernel):
+@pytest.mark.parametrize("K,Hc,W", PHASE_SHAPES)
+def test_compact_kernel_bitwise_on_card(cuda, K, Hc, W, kernel, tol,
+                                        negative):
     inp = testing.phase_inputs(K, K, Hc, W, np.float32)
+    if negative:
+        inp = testing.negate_alphas(inp, K)
+    tol = 1.1 if tol is None else tol
     args = [torch.as_tensor(inp[k], device=cuda) for k in COMPACT_ARGS]
     before = t_pk.phase_messages_compact.launches
-    got = t_pk.phase_messages_compact(*args, 1.1, kernel)
+    got = t_pk.phase_messages_compact(*args, tol, kernel)
     torch.cuda.synchronize()
     assert t_pk.phase_messages_compact.launches == before + 1
-    ref = t_pk.phase_messages_compact_ref(*args, 1.1, kernel)
+    ref = t_pk.phase_messages_compact_ref(*args, tol, kernel)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("tol,negative", PHASE_VARIANTS)
 @pytest.mark.parametrize("kernel", [1, 2])
-@pytest.mark.parametrize("K,H,W", [(2, 9, 10), (15, 37, 53), (79, 37, 53)])
-def test_full_kernel_bitwise_on_card(cuda, K, H, W, kernel):
+@pytest.mark.parametrize("K,H,W", [(2, 9, 10)] + [(K, 37, 53) for K in (
+    15, 79, 3, 17, 41, 97, 202)])
+def test_full_kernel_bitwise_on_card(cuda, K, H, W, kernel, tol, negative):
+    tol = 0.9 if tol is None else tol
     for color in (0, 1):
         inp = testing.phase_inputs_full(K, K, H, W, color, np.float32)
+        if negative:
+            inp = testing.negate_alphas(inp, K + color)
         args = [torch.as_tensor(inp[k], device=cuda) for k in FULL_ARGS]
         before = t_pk.phase_messages.launches
-        got = t_pk.phase_messages(*args, 0.9, kernel)
+        got = t_pk.phase_messages(*args, tol, kernel)
         torch.cuda.synchronize()
         assert t_pk.phase_messages.launches == before + 1
-        ref = t_pk.phase_messages_ref(*args, 0.9, kernel)
+        ref = t_pk.phase_messages_ref(*args, tol, kernel)
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
 

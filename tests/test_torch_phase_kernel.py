@@ -126,3 +126,135 @@ def test_phase_compact_vs_xla_branch(s, kernel):
                                    rtol=0, atol=1e-12)
     np.testing.assert_allclose(float(gn), float(wn), rtol=1e-12)
     np.testing.assert_allclose(float(gm), float(wm), rtol=1e-12)
+
+
+# ---------------------------------------------- the kernels' hoisted truncation
+# The CUDA kernels take the truncation out of their K^2 loop: for a >= 0
+#   min_s (h + a * min(c, tol)) == min(min_s (h + a * c), min_s (h + a * tol))
+# bit for bit in float32, since rounding is monotone.  These tests hold that
+# form against the plain one on the CPU (the kernels themselves are compared
+# with the plain versions on the card).
+A_CASES = {"random": None, "zero": 0.0, "negzero": -0.0, "tiny": 1e-30,
+           "huge": 3e38}
+
+
+def _cost(d, kernel):
+    return d.abs() if kernel == 1 else d * d
+
+
+def _plain_min(h, xt, ys, a, tol, kernel, target_first):
+    """min_s h[s] + a * TR: h, ys [K_s, N]; xt [K_t, N]; a [N] -> [K_t, N]."""
+    d = xt[:, None] - ys[None] if target_first else ys[None] - xt[:, None]
+    term = a * t_energy.truncated_kernel(d, kernel, tol)
+    return (h[None] + term).amin(dim=1)
+
+
+def _hoisted_min(h, xt, ys, a, tol, kernel, target_first):
+    """The same minimum with the truncation out of the loop over s."""
+    d = xt[:, None] - ys[None] if target_first else ys[None] - xt[:, None]
+    near = (h[None] + a * _cost(d, kernel)).amin(dim=1)
+    far = (h + a * tol).amin(dim=0)
+    return torch.minimum(near, far[None])
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _tol_at(where, diffs, kernel):
+    """A float32 tol below every |diff|^kernel, above every one, or at
+    their median."""
+    c = _cost(diffs, kernel)
+    tol = {"below": 0.5 * float(c.min()), "above": 2.0 * float(c.max()),
+           "between": float(c.median())}[where]
+    return float(np.float32(tol))
+
+
+def _with_alphas(inp, a_kind):
+    out = dict(inp)
+    if A_CASES[a_kind] is not None:
+        for k in ("a_s", "a_o"):
+            out[k] = np.full_like(inp[k], A_CASES[a_kind])
+    return out
+
+
+def _compact_hoisted(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o, a_s, a_o,
+                     valid_s, valid_o, tol, kernel):
+    """phase_messages_compact_ref's function in the kernels' hoisted form."""
+    K, Hc, W = gD_s.shape
+    flat = lambda t: t.reshape(t.shape[0], -1)
+    outs = {"s": ([], []), "o": ([], [])}
+    for d in range(4):
+        for c, h, xt, ys, a, valid, tq in (
+                ("s", gD_s - M_s[d], Q_s[d], D0_s, a_s[d], valid_s[d], True),
+                ("o", gDn[d] - M_o[d], D0_o, Q_o[d], a_o[d], valid_o[d],
+                 False)):
+            acc = _hoisted_min(flat(h), flat(xt), flat(ys), a.reshape(-1),
+                               tol, kernel, tq).reshape(K, Hc, W)
+            vmin = torch.min(acc, dim=0).values
+            outs[c][0].append((acc - vmin[None]) * valid[None])
+            outs[c][1].append(vmin)
+    return (torch.stack(outs["s"][0]), torch.stack(outs["o"][0]),
+            torch.stack(outs["s"][1]), torch.stack(outs["o"][1]))
+
+
+@pytest.mark.parametrize("K", [1, 8, 79])
+@pytest.mark.parametrize("tol_at", ["below", "between", "above"])
+@pytest.mark.parametrize("a_kind", list(A_CASES))
+@pytest.mark.parametrize("kernel", [1, 2])
+def test_hoisted_truncation_bitwise(kernel, a_kind, tol_at, K):
+    """The hoisted form equals the plain form bit for bit in float32, for
+    both operand orders, and gives phase_messages_compact_ref's bits."""
+    rng = np.random.default_rng(K + 10 * kernel)
+    N = 64
+    h = torch.as_tensor(rng.uniform(-2, 2, (K, N)).astype(np.float32))
+    xt, ys = (torch.as_tensor(rng.uniform(-3, 3, (K, N)).astype(np.float32))
+              for _ in range(2))
+    a = torch.as_tensor(rng.uniform(0, 2, N).astype(np.float32)
+                        if A_CASES[a_kind] is None
+                        else np.full(N, A_CASES[a_kind], np.float32))
+    tol = _tol_at(tol_at, xt[:, None] - ys[None], kernel)
+    for tq in (True, False):
+        want = _plain_min(h, xt, ys, a, tol, kernel, tq)
+        got = _hoisted_min(h, xt, ys, a, tol, kernel, tq)
+        assert torch.equal(_bits(got), _bits(want))
+
+    inp = _with_alphas(testing.phase_inputs(K + kernel, K, 3, 5), a_kind)
+    args = [torch.as_tensor(inp[k]) for k in COMPACT_ARGS]
+    diffs = torch.cat([(args[4][:, :, None] - args[6][None, None]).flatten(),
+                       (args[5][:, :, None] - args[7][None, None]).flatten()])
+    tol = _tol_at(tol_at, diffs, kernel)
+    want = t_pk.phase_messages_compact_ref(*args, tol, kernel)
+    got = _compact_hoisted(*args, tol, kernel)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("kernel", [1, 2])
+def test_hoisted_truncation_fails_for_negative_alpha(kernel):
+    """With a < 0 the hoisted form is wrong (the minimum over the truncation
+    becomes a maximum), which is why the kernels walk the plain term at such
+    a pixel; that per-pixel choice gives the plain bits on a problem with
+    both signs."""
+    h = torch.tensor([[0.0], [0.0]])
+    xt = torch.tensor([[0.0]])
+    ys = torch.tensor([[0.0], [5.0]])
+    a = torch.tensor([-1.0])
+    want = _plain_min(h, xt, ys, a, 1.0, kernel, True)
+    got = _hoisted_min(h, xt, ys, a, 1.0, kernel, True)
+    assert float(want) == -1.0 and float(got) == -5.0 * (5.0 if kernel == 2
+                                                          else 1.0)
+    rng = np.random.default_rng(kernel)
+    K, N = 17, 96
+    h, xt, ys = (torch.as_tensor(rng.uniform(-3, 3, (K, N)).astype(
+        np.float32)) for _ in range(3))
+    a = torch.as_tensor((rng.uniform(0.5, 2, N) * np.where(
+        rng.uniform(size=N) < 1 / 3, -1, 1)).astype(np.float32))
+    tol = 1.1 if kernel == 1 else 0.9
+    want = _plain_min(h, xt, ys, a, tol, kernel, False)
+    got = torch.where(a[None] >= 0,
+                      _hoisted_min(h, xt, ys, a, tol, kernel, False),
+                      _plain_min(h, xt, ys, a, tol, kernel, False))
+    assert torch.equal(_bits(got), _bits(want))
+    assert not torch.equal(_hoisted_min(h, xt, ys, a, tol, kernel, False),
+                           want)
