@@ -12,14 +12,19 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      alpha = 0), and at 37x53 K in {3, 17, 41, 97, 202} (beyond one pass
      of a block's targets), alpha < 0 on a third of the pixels, and tol in
      {1e-3, 1e6}; the column send for K in {2, 8, 15, 79, 300} x kernel x L
-     in {53, 1536} x batch in {1, 2}, and K = 1000 (staged in global
-     scratch; L = 53 and L = 64,000, more tiles than resident blocks); the
+     in {53, 1536} x batch in {1, 2}, and K = 1000 (L = 53 and L = 64,000,
+     more tiles than resident blocks), and gathered in one launch as a
+     solver step gives it (six problems of a banded step at teddy's
+     L = 1536, K = 79 and 202; two of a wavefront step at L = 375, K = 79;
+     both at L = 53 for K in {3, 17, 41, 97, 202, 1000}), each with a < 0
+     on a third of the lanes and with tol in {1e-3, 1e6}; the
      fused banded sweep on twelve problems up to teddy K = 79 and K = 202
      with 128 x 128 blocks and K in {97, 202, 300, 1000}, one sweep from
      zero messages and one from the warm state (messages and seam arrays bit
      for bit, the lower bound to rtol 1e-5); the min-plus pair for K in {2,
      8, 15, 79, 300} x kernel x {37x53, 375x450} and K = 1000 on 37x53 and
-     200x320 (border pixels with alpha = 0); the fused raster-wavefront
+     200x320 (border pixels with alpha = 0), and at 37x53 for K in {17, 79}
+     with a < 0 on a third of the pixels and with tol in {1e-3, 1e6}; the fused raster-wavefront
      sweep on fourteen problems up to teddy K = 79 and K = 202 and K in
      {97, 128, 202, 300, 1000}, the same two sweeps;
   3. drives the main path at full width: DispMapNCC on data/teddy (375x450,
@@ -34,7 +39,8 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      proposals, 128 x 128 blocks, one launch of the fused sweep kernel per
      sweep; then repeats the first sweeps through the plain version;
   6. drives solve_banded(sweep="steps") at the same size through the column
-     send kernel and compares with the plain version and the fused sweep;
+     send kernel, one launch per step (2 T a sweep), and compares with the
+     plain version and the fused sweep;
   7. drives the min-plus pair kernel on its path: one full-grid TRW-S phase
      at teddy K = 79 per colour, assembled per direction from minplus_pair
      as the JAX solver's plain branch assembles it, against the full-grid
@@ -45,7 +51,8 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      wavefront sweep kernel per sweep; then repeats the first sweeps through
      the plain version;
   9. drives solve_wavefront(sweep="steps") at the same size through the
-     column send kernel and compares with the fused sweep;
+     column send kernel, one launch per step, and compares with the fused
+     sweep;
  10. drives DispMapNCC simultaneous fusion at teddy's --grid-step 30
      proposals (K = 202, beyond one pass of a block's targets) on the banded
      and the wavefront schedules, 8 sweeps and one decode each, through
@@ -56,7 +63,8 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      between the ready flags and the reads they guard would differ);
  12. times every kernel at the teddy K = 79 shape (CUDA events) beside its
      plain version and its byte / operation bounds (the fused sweeps also at
-     K = 15 and K = 202, beside their plain versions), and prints the
+     K = 15 and K = 202, beside their plain versions; the column send also
+     as the one launch of a banded and of a wavefront step), and prints the
      ``{"kernels": [...]}`` line.
 
 Every phase prints one JSON line; any failed check raises, so the exit code
@@ -67,6 +75,7 @@ is non-zero and the last line is never printed.  The last line is
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -171,6 +180,10 @@ SEND_PAIR_K = (2, 8, 15, 79, 300)
 # and with none
 PHASE_K = (3, 17, 41, 97, 202)
 PHASE_TOL = (1e-3, 1e6)
+# the gathered send's comparisons at a small L: K below one thread's 20 (or,
+# split over a cluster, 5) targets, not a multiple of them, beyond one pass
+# of a block's targets, and far beyond
+SEND_MANY_K = (3, 17, 41, 97, 202, 1000)
 GLOBAL_STAGE_K = 1000
 GLOBAL_STAGE_JOBS = 2000
 # teddy at --grid-step 30: 196 RANSAC + 6 fronto-parallel proposals
@@ -328,16 +341,27 @@ def phase_vs_plain(err: dict) -> int:
 
 
 def pair_vs_plain(err: dict) -> int:
-    """The min-plus pair kernel against minplus_pair_ref, bit for bit."""
+    """The min-plus pair kernel against minplus_pair_ref, bit for bit; at
+    37x53 also with a < 0 on a third of the pixels (the plain-term branch)
+    and with tol in PHASE_TOL."""
     cases = 0
-    shapes = [((37, 53), K) for K in SEND_PAIR_K + (GLOBAL_STAGE_K,)]
-    shapes += [((375, 450), K) for K in SEND_PAIR_K]
-    shapes += [((200, GLOBAL_STAGE_JOBS * 32 // 200), GLOBAL_STAGE_K)]
-    for (H, W), K in shapes:
+    shapes = [((37, 53), K, None, False) for K in SEND_PAIR_K
+              + (GLOBAL_STAGE_K,)]
+    shapes += [((375, 450), K, None, False) for K in SEND_PAIR_K]
+    shapes += [((200, GLOBAL_STAGE_JOBS * 32 // 200), GLOBAL_STAGE_K, None,
+                False)]
+    shapes += [((37, 53), K, tol, negative) for K in (17, 79)
+               for tol, negative in ((None, True), (PHASE_TOL[0], False),
+                                     (PHASE_TOL[1], False))]
+    for (H, W), K, tol_case, negative in shapes:
         for kernel in (1, 2):
-            args = [torch.as_tensor(a, device=DEV)
-                    for a in testing.pair_inputs(K + H + kernel, K, H, W)]
-            tol = 1.1 if kernel == 1 else 0.9
+            inp = list(testing.pair_inputs(K + H + kernel, K, H, W))
+            if negative:
+                flip = np.random.default_rng(K).uniform(size=(H, W)) < 1 / 3
+                inp[4] = np.where(flip, -inp[4], inp[4]).astype(np.float32)
+            args = [torch.as_tensor(a, device=DEV) for a in inp]
+            tol = (tol_case if tol_case is not None
+                   else 1.1 if kernel == 1 else 0.9)
             got = minplus.minplus_pair(*args, tol, kernel)
             torch.cuda.synchronize()
             ref = minplus.minplus_pair_ref(*args, tol, kernel)
@@ -346,7 +370,8 @@ def pair_vs_plain(err: dict) -> int:
                                           float((g - r).abs().max()))
                 check(torch.equal(g, r),
                       f"pair kernel != plain version ({what}, K={K}, "
-                      f"{H}x{W}, kernel={kernel})")
+                      f"{H}x{W}, kernel={kernel}, tol={tol}, "
+                      f"negative={negative})")
                 check(bool(torch.isfinite(g).all()),
                       f"pair kernel: non-finite {what}")
             cases += 1
@@ -419,7 +444,57 @@ def send_vs_plain(err: dict) -> int:
         ref = minplus.minplus_send_ref(*a, 1.1, 1)
         check(all(torch.equal(g, r_) for g, r_ in zip(got, ref)),
               "send kernel != plain version (broadcast batch)")
-    return cases + 2
+    return cases + 2 + send_many_vs_plain(err)
+
+
+def step_problems(seed: int, K: int, schedule: str, L: int | None = None,
+                  negative: float = 0.0):
+    """The sends of one solver step on the card (testing.send_step_problems):
+    by default at teddy's shape, L = 1536 (banded, 128 x 128 blocks) or
+    L = 375 (wavefront)."""
+    if L is None:
+        L = (banded.BandedSpec(*FULL[1:], BAND, BAND).L
+             if schedule == "banded" else FULL[1])
+    return testing.send_step_problems(
+        seed, K, L, schedule, Lp=L if L > 100 else 96, negative=negative,
+        to=lambda a: torch.as_tensor(a, device=DEV))
+
+
+def send_many_vs_plain(err: dict) -> int:
+    """The send kernel's gathered launch against minplus_send_many_ref, bit
+    for bit: the problems of a banded step at teddy's L (K = 79, 202; one
+    tile a block) and of a wavefront step (K = 79; its 48 tiles split over
+    clusters), both at L = 53 for K in SEND_MANY_K (clusters; passes); each
+    with a < 0 on a third of the lanes and with tol in PHASE_TOL."""
+    cases = 0
+    shapes = [("banded", 79, None), ("banded", K_WIDE, None),
+              ("wavefront", 79, None)]
+    shapes += [(sched, K, 53) for K in SEND_MANY_K
+               for sched in ("banded", "wavefront")]
+    for sched, K, L in shapes:
+        for kernel in (1, 2):
+            base = 1.1 if kernel == 1 else 0.9
+            for tol, negative in ((base, 0.0), (base, 1 / 3),
+                                  (PHASE_TOL[0], 0.0), (PHASE_TOL[1], 0.0)):
+                problems = step_problems(K + kernel, K, sched, L, negative)
+                before = minplus.minplus_send.launches
+                got = minplus.minplus_send_many(problems, tol, kernel)
+                torch.cuda.synchronize()
+                check(minplus.minplus_send.launches == before + 1,
+                      "gathered send: not one launch")
+                ref = minplus.minplus_send_many_ref(problems, tol, kernel)
+                what = (f"{sched} step, K={K}, L={L}, kernel={kernel}, "
+                        f"tol={tol}, negative={negative}")
+                for q, (g, r) in enumerate(zip(got, ref)):
+                    for a, b, name in zip(g, r, ("msg", "vmin")):
+                        err["minplus_send"] = max(
+                            err["minplus_send"], float((a - b).abs().max()))
+                        check(torch.equal(a, b), f"gathered send != plain "
+                              f"version ({name} of problem {q}; {what})")
+                cases += 1
+                del problems, got, ref
+        torch.cuda.empty_cache()
+    return cases
 
 
 def send_ref_by_lanes(hs, p, r, alpha, tol, kernel, lanes: int = 256):
@@ -664,12 +739,13 @@ def phase_steps_path() -> dict:
     torch.cuda.synchronize()
     t_steps = time.perf_counter() - t0
     counts = read_counts()
-    # per step one batched interior head-send, one batched interior
-    # tail-send and four seam sends; T forward and T backward steps
-    expect = 6 * 2 * spec.T * sweeps
+    # per step one launch for its batched interior head-send, its batched
+    # interior tail-send and its four seam sends; T forward and T backward
+    # steps
+    expect = 2 * spec.T * sweeps
     check(expect == banded.sends_per_sweep(spec) * sweeps
           and counts["minplus_send"] == expect,
-          f"send kernel launches {counts['minplus_send']} != 6 per step x "
+          f"send kernel launches {counts['minplus_send']} != 1 per step x "
           f"{2 * spec.T} steps x {sweeps} sweeps = {expect}")
     plain = banded.solve_banded(*prob, **kw, sweep="steps", use_kernel=False)
     fused = banded.solve_banded(*prob, **kw, sweep="fused")
@@ -684,7 +760,8 @@ def phase_steps_path() -> dict:
     e, lb = float(got.energy), float(got.lower_bound)
     check(np.isfinite([e, lb]).all() and lb <= e, f"lb {lb} > E {e}")
     say("steps_path", K=K, size=[H, W], blocks=[BAND, BAND], sweeps=sweeps,
-        steps=2 * spec.T, sends_per_step=6, launches=counts,
+        steps=2 * spec.T, sends_per_step=6, launches_per_step=1,
+        launches=counts,
         predicted_send_launches=expect, energy=e, lower_bound=lb,
         seconds=t_steps, state_equal="bitwise vs plain and vs fused")
     return counts
@@ -831,12 +908,12 @@ def phase_wavefront_steps_path() -> dict:
     torch.cuda.synchronize()
     t_steps = time.perf_counter() - t0
     counts = read_counts()
-    # per step one batched head-send and one batched tail-send (a direction
-    # pair each); T forward and T backward steps
-    expect = 2 * 2 * T * sweeps
+    # per step one launch for its batched head-send and its batched
+    # tail-send (a direction pair each); T forward and T backward steps
+    expect = 2 * T * sweeps
     check(expect == wavefront.sends_per_sweep(T) * sweeps
           and counts["minplus_send"] == expect,
-          f"send kernel launches {counts['minplus_send']} != 2 per step x "
+          f"send kernel launches {counts['minplus_send']} != 1 per step x "
           f"{2 * T} steps x {sweeps} sweeps = {expect}")
     fused = wavefront.solve_wavefront(*prob, **kw, sweep="fused")
     check(torch.equal(got.messages, fused.messages)
@@ -852,7 +929,8 @@ def phase_wavefront_steps_path() -> dict:
     check(np.isfinite([e, lb]).all() and lb <= e + 1e-5 * abs(e),
           f"lb {lb} > E {e}")
     say("wavefront_steps_path", K=K, size=[H, W], sweeps=sweeps,
-        steps=2 * T, sends_per_step=2, launches=counts,
+        steps=2 * T, sends_per_step=2, launches_per_step=1,
+        launches=counts,
         predicted_send_launches=expect, energy=e, lower_bound=lb,
         seconds=t_steps, state_equal="bitwise vs fused")
     return counts
@@ -987,17 +1065,24 @@ def device_ms(fn, reps: int, kernel_name: str) -> float:
     """Mean time the card spends in one launch of the kernel whose name
     holds ``kernel_name`` (torch.profiler's device-side records): what is
     left of ``time_ms`` when the host's cost of a launch is taken out."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel_name in e.key
-            and e.device_type == torch.autograd.DeviceType.CUDA]
+    # the calls of the first step go unrecorded, and a trace that still
+    # misses launches is taken again (at most three times): a trace's
+    # records can lack launches that ran
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        hits = [e for e in prof.key_averages() if kernel_name in e.key
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in hits) == reps:
+            break
     check(sum(e.count for e in hits) == reps,
           f"profiler saw {sum(e.count for e in hits)} launches of "
           f"{kernel_name}, expected {reps}")
@@ -1025,6 +1110,26 @@ def send_bounds(B: int, K: int, L: int) -> dict:
     """Least time of one column send: (4 K + 2) rows of B x L float32 moved
     once against K^2 min-plus steps per lane."""
     return bound_of((4 * K + 2) * B * L * 4, K * K * B * L * OPS_PER_STEP)
+
+
+def step_bounds(problems, K: int) -> dict:
+    """Least time of one gathered send call: each operand read once (one
+    read also for an operand that several problems share or that a batch
+    broadcasts), msg and vmin written once, against K^2 min-plus steps per
+    lane and batch entry."""
+    seen, n_bytes, n_ops = set(), 0, 0
+    for g, m, xt, ys, alpha in problems:
+        lead = torch.broadcast_shapes(g.shape[:-2], m.shape[:-2],
+                                      xt.shape[:-2], ys.shape[:-2],
+                                      alpha.shape[:-1])
+        B, L = math.prod(lead), xt.shape[-1]
+        for t in (g, m, xt, ys, alpha):
+            if (t.data_ptr(), t.numel()) not in seen:
+                seen.add((t.data_ptr(), t.numel()))
+                n_bytes += 4 * t.numel()
+        n_bytes += 4 * B * (K + 1) * L
+        n_ops += B * L * K * K * OPS_PER_STEP
+    return bound_of(n_bytes, n_ops)
 
 
 def sweep_bounds(K: int, pixels: int) -> dict:
@@ -1208,9 +1313,29 @@ def phase_timings(launches: dict, err: dict) -> list:
     # time at this size, so the card's own time is reported beside ``ms``
     on_device = device_ms(lambda: minplus.minplus_send(*args, 8.0, 1), 50,
                           "minplus_send_kernel")
+    # the one launch of a solver step's sends (synthetic data shaped as the
+    # steps give it): host-clock ms, device ms and the bound of the summed
+    # work, per schedule
+    step = {}
+    for sched in ("banded", "wavefront"):
+        problems = step_problems(1, K, sched)
+
+        def call():
+            minplus.minplus_send_many(problems, 8.0, 1)
+
+        step[sched] = dict(ms=time_ms(call, 50, warmup=5),
+                           device_ms=device_ms(call, 50,
+                                               "minplus_send_kernel"),
+                           bound_ms=step_bounds(problems, K)["bound_ms"])
+        del problems
     rows.append(dict(name="minplus_send", ms=ms, device_ms=on_device,
                      plain_ms=plain, shape=dict(B=B, K=K, L=L),
-                     **send_bounds(B, K, L)))
+                     **send_bounds(B, K, L),
+                     step_ms={k: v["ms"] for k, v in step.items()},
+                     step_device_ms={k: v["device_ms"]
+                                     for k, v in step.items()},
+                     step_bound_ms={k: v["bound_ms"]
+                                    for k, v in step.items()}))
     del args
     # the fused sweep at the main path's shape, and at K = 15 on 370 x 413
     # (the shape of the baby2 pair; synthetic data) for the record, and at

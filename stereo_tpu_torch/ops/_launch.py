@@ -10,9 +10,11 @@ import torch
 
 
 def check_tensor(name: str, t: torch.Tensor, shape, device,
-                 dtype=torch.float32):
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device``: the CUDA kernels read raw pointers."""
+                 dtype=torch.float32, contiguous: bool = True):
+    """Raise unless ``t`` is a ``dtype`` tensor on ``device``, of ``shape``
+    (unless None) and contiguous (unless ``contiguous`` is False, for a
+    kernel that reads it through its strides): the CUDA kernels read raw
+    pointers."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -21,10 +23,10 @@ def check_tensor(name: str, t: torch.Tensor, shape, device,
         what = "float32" if dtype == torch.float32 else str(dtype)
         raise ValueError(f"{name}: the CUDA kernel takes {what}, got "
                          f"{t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

@@ -52,7 +52,8 @@ Two sweeps, selected by ``sweep=`` on ``solve_banded`` and ``BandedRun``:
       of the hand-written kernel (csrc/banded_kernel.cu).  It takes every
       T >= 3, so short sweeps need no other path.
   ``"steps"``: a Python loop over the 2 T anti-diagonal steps with PyTorch
-      glue, every send through ``ops.minplus.minplus_send`` (on the card the
+      glue, a step's six sends through one call of
+      ``ops.minplus.minplus_send_many`` (on the card one launch of the
       hand-written column send kernel, csrc/minplus_send.cu): the
       counterpart of the JAX package's scan path.
 
@@ -82,7 +83,7 @@ from stereo_tpu_torch.ops import banded_kernel
 from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
 from stereo_tpu_torch.solvers import wavefront
 from stereo_tpu_torch.solvers.wavefront import (
-    DN, GROUP_A, GROUP_B, LT, RT, UP, _send_head, _send_tail, skew, unskew)
+    DN, GROUP_A, GROUP_B, LT, RT, UP, _head, _sends, _tail, skew, unskew)
 
 __all__ = ["solve_banded", "banded_order", "BandedSpec", "BandedRun"]
 
@@ -419,31 +420,29 @@ def _fwd_col(bp: _BandedProblem, state, t, use_kernel=True):
     mx0, mxW, my0, myT = masks
     gD = bp.gamma[c][None, :] * D  # [K, L]
 
-    # interior head-sends, group A (RT, DN) at column c
-    mh, _ = _send_head(gD[None], Ac, bp.QA[c], bp.D0[c][None], bp.aA[c],
-                       *ktol)
-    # interior tail-sends, group B (LT, UP) into column c+1
+    QB_c, D0_c, aB_c = bp.QB[c], bp.D0[c], bp.aB[c]
     gDt = torch.stack([gD, _sdownb(gD, nb)], 0)
-    mt, _ = _send_tail(gDt, Bcp1, bp.QB[c + 1], bp.D0[c + 1][None],
-                       bp.aB[c + 1], *ktol)
+    gDp = _padLp(gD, Lp)
+    # the step's six sends, each from the state before the step:
+    (mh, _), (mt, _), (mlt, _), (mup, _), (mrt, _), (mdn, _) = _sends([
+        # interior head-sends, group A (RT, DN) at column c
+        _head(gD[None], Ac, bp.QA[c], bp.D0[c][None], bp.aA[c]),
+        # interior tail-sends, group B (LT, UP) into column c+1
+        _tail(gDt, Bcp1, bp.QB[c + 1], bp.D0[c + 1][None], bp.aB[c + 1]),
+        # F-head x: M[LT]@(., t, 0), stored in SxL at group t
+        _head(gD, SxL, QB_c[0], D0_c, aB_c[0]),
+        # F-head y: M[UP]@(., 0, t), SyU group t (computed at group-0 lanes)
+        _head(gD, views[0], QB_c[1], D0_c, aB_c[1]),
+        # F-tail x: M[RT]@(., t, Bw-1) <- source (b+1, t, 0)
+        _tail(_roll(gD, -1), SxR, bp.PxR_q, bp.PxR_d0, bp.PxR_a),
+        # F-tail y: M[DN]@(., Bh-1, t) <- source (b+Gx down-block, 0, t)
+        _tail(_roll(gDp, t * nb - Gx), SyD, bp.PyD_q, bp.PyD_d0, bp.PyD_a),
+    ], *ktol)
     MA[c] = torch.where(bp.vA[c][:, None, :] > 0, mh, Ac)
     MB[c + 1] = torch.where(bp.vB[c + 1][:, None, :] > 0, mt, Bcp1)
-
-    QB_c, D0_c, aB_c = bp.QB[c], bp.D0[c], bp.aB[c]
-    # F-head x: M[LT]@(., t, 0), stored in SxL at group t
-    mlt, _ = _send_head(gD, SxL, QB_c[0], D0_c, aB_c[0], *ktol)
-    # F-head y: M[UP]@(., 0, t), SyU group t (computed at group-0 lanes)
-    mup, _ = _send_head(gD, views[0], QB_c[1], D0_c, aB_c[1], *ktol)
     upd = _roll(_padLp(torch.where(my0, mup, 0.0), Lp), t * nb)
     wy = (bp.l2_grp == t) & bp.vSyU
-    # F-tail x: M[RT]@(., t, Bw-1) <- source (b+1, t, 0)
-    mrt, _ = _send_tail(_roll(gD, -1), SxR, bp.PxR_q, bp.PxR_d0, bp.PxR_a,
-                        *ktol)
     wx = (bp.lane_yb == t) & bp.vSxR
-    # F-tail y: M[DN]@(., Bh-1, t) <- source (b+Gx down-block, 0, t)
-    gDp = _padLp(gD, Lp)
-    mdn, _ = _send_tail(_roll(gDp, t * nb - Gx), SyD, bp.PyD_q, bp.PyD_d0,
-                        bp.PyD_a, *ktol)
     wy2 = (bp.l2_grp == t) & bp.vSyD
     S = (torch.where(mx0, mlt, SxL), torch.where(wx, mrt, SxR),
          torch.where(wy, upd, SyU), torch.where(wy2, mdn, SyD))
@@ -471,41 +470,38 @@ def _bwd_col(bp: _BandedProblem, state, t, use_kernel=True):
     lb = _msum(bp.pix[c] > 0, vminD, acc_t)
     gD = bp.gamma[c][None, :] * (D - vminD[None, :])
 
-    # interior head-sends, group B (LT, UP) at column c
-    mh, vminh = _send_head(gD[None], Bc, bp.QB[c], bp.D0[c][None], bp.aB[c],
-                           *ktol)
-    vh = bp.vB[c]
-    lb = lb + _msum(vh > 0, vminh, acc_t)
-    # interior tail-sends, group A (RT, DN) into column c-1
+    QA_c, D0_c, aA_c = bp.QA[c], bp.D0[c], bp.aA[c]
     gDt = torch.stack([gD, _supb(gD, nb)], 0)
-    mt, vmint = _send_tail(gDt, Acm1, bp.QA[c - 1], bp.D0[c - 1][None],
-                           bp.aA[c - 1], *ktol)
-    vt = bp.vA[c - 1]
-    lb = lb + _msum(vt > 0, vmint, acc_t)
+    src = _roll(_padLp(gD, Lp), (t - 2 * Bh + 2) * nb + Gx)
+    # the step's six sends, each from the state before the step:
+    sends = _sends([
+        # interior head-sends, group B (LT, UP) at column c
+        _head(gD[None], Bc, bp.QB[c], bp.D0[c][None], bp.aB[c]),
+        # interior tail-sends, group A (RT, DN) into column c-1
+        _tail(gDt, Acm1, bp.QA[c - 1], bp.D0[c - 1][None], bp.aA[c - 1]),
+        # B-head x: M[RT]@(., t-Bw+1, Bw-1), SxR at group t-Bw+1
+        _head(gD, SxR, QA_c[0], D0_c, aA_c[0]),
+        # B-head y: M[DN]@(., Bh-1, t-Bh+1), computed at group Bh-1 lanes
+        _head(gD, views[2], QA_c[1], D0_c, aA_c[1]),
+        # B-tail x: M[LT]@(., t-Bw+1, 0) <- source (b-1, t-Bw+1, Bw-1)
+        _tail(_roll(gD, 1), SxL, bp.PxL_q, bp.PxL_d0, bp.PxL_a),
+        # B-tail y: M[UP]@(., 0, t-Bh+1) <- source (b, Bh-1, t-Bh+1),
+        # target SyU at lane2 (t-Bh+1, b+Gx)
+        _tail(src, SyU, bp.PyU_q, bp.PyU_d0, bp.PyU_a),
+    ], *ktol)
+    (mh, vminh), (mt, vmint), (mrt, vrt), (mdn, vdn), (mlt, vlt), \
+        (mup, vup) = sends
+    vh, vt = bp.vB[c], bp.vA[c - 1]
+    wxl = (bp.lane_yb == t - (Bw - 1)) & bp.vSxL
+    wyu = (bp.l2_grp == t - (Bh - 1)) & bp.vSyU
+    wyd = (bp.l2_grp == t - (Bh - 1)) & bp.vSyD
+    for mask, v in ((vh > 0, vminh), (vt > 0, vmint), (mxW, vrt),
+                    (myT, vdn), (wxl, vlt), (wyu, vup)):
+        lb = lb + _msum(mask, v, acc_t)
     MB[c] = torch.where(vh[:, None, :] > 0, mh, Bc)
     MA[c - 1] = torch.where(vt[:, None, :] > 0, mt, Acm1)
-
-    QA_c, D0_c, aA_c = bp.QA[c], bp.D0[c], bp.aA[c]
-    # B-head x: M[RT]@(., t-Bw+1, Bw-1), SxR at group t-Bw+1
-    mrt, vrt = _send_head(gD, SxR, QA_c[0], D0_c, aA_c[0], *ktol)
-    lb = lb + _msum(mxW, vrt, acc_t)
-    # B-head y: M[DN]@(., Bh-1, t-Bh+1), computed at group Bh-1 lanes
-    mdn, vdn = _send_head(gD, views[2], QA_c[1], D0_c, aA_c[1], *ktol)
-    lb = lb + _msum(myT, vdn, acc_t)
     upd = _roll(_padLp(torch.where(myT, mdn, 0.0), Lp),
                 -(2 * Bh - 2 - t) * nb)
-    wyd = (bp.l2_grp == t - (Bh - 1)) & bp.vSyD
-    # B-tail x: M[LT]@(., t-Bw+1, 0) <- source (b-1, t-Bw+1, Bw-1)
-    mlt, vlt = _send_tail(_roll(gD, 1), SxL, bp.PxL_q, bp.PxL_d0, bp.PxL_a,
-                          *ktol)
-    wxl = (bp.lane_yb == t - (Bw - 1)) & bp.vSxL
-    lb = lb + _msum(wxl, vlt, acc_t)
-    # B-tail y: M[UP]@(., 0, t-Bh+1) <- source (b, Bh-1, t-Bh+1),
-    # target SyU at lane2 (t-Bh+1, b+Gx)
-    src = _roll(_padLp(gD, Lp), (t - 2 * Bh + 2) * nb + Gx)
-    mup, vup = _send_tail(src, SyU, bp.PyU_q, bp.PyU_d0, bp.PyU_a, *ktol)
-    wyu = (bp.l2_grp == t - (Bh - 1)) & bp.vSyU
-    lb = lb + _msum(wyu, vup, acc_t)
     S = (torch.where(wxl, mlt, SxL), torch.where(mxW, mrt, SxR),
          torch.where(wyu, mup, SyU), torch.where(wyd, upd, SyD))
     return (MA, MB, S), lb
@@ -526,10 +522,11 @@ def _sweep_steps(bp: _BandedProblem, state, use_kernel=True):
 
 
 def sends_per_sweep(spec: BandedSpec) -> int:
-    """Calls of ``minplus_send`` in one ``sweep="steps"`` pass: per step one
-    batched interior head-send, one batched interior tail-send and four seam
-    sends, over T forward and T backward steps."""
-    return 6 * 2 * spec.T
+    """Launches of the send kernel (calls of ``_sends``) in one
+    ``sweep="steps"`` pass: one per step for its batched interior head-send,
+    its batched interior tail-send and its four seam sends, over T forward
+    and T backward steps."""
+    return 2 * spec.T
 
 
 def _decode_state(bp: _BandedProblem, state):

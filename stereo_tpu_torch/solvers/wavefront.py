@@ -39,7 +39,8 @@ Two sweeps, selected by ``sweep=`` on ``solve_wavefront``:
       ``ops.wavefront_kernel.sweep_wavefront`` per sweep, on the card one
       launch of the hand-written kernel (csrc/wavefront_kernel.cu).
   ``"steps"``: a Python loop over the 2 T anti-diagonal steps with PyTorch
-      glue, every send through ``ops.minplus.minplus_send`` (on the card the
+      glue, a step's two sends through one call of
+      ``ops.minplus.minplus_send_many`` (on the card one launch of the
       hand-written column send kernel, csrc/minplus_send.cu): the
       counterpart of the JAX package's scan path.
 
@@ -50,7 +51,7 @@ take the plain versions.  Both sweeps and both values of ``use_kernel`` give
 the same messages (bit for bit in float32 on the card); the fused kernel's
 lower bound is summed in another order and agrees to float32 rounding.
 
-``skew`` / ``unskew``, ``_send_head`` / ``_send_tail`` and the direction
+``skew`` / ``unskew``, ``_head`` / ``_tail`` / ``_sends`` and the direction
 constants are shared with solvers/banded.py.
 """
 
@@ -64,7 +65,8 @@ from stereo_tpu_torch.device import DEFAULT_DEVICE, acc_dtype, resolve_device
 from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.geometry import take_plane
 from stereo_tpu_torch.ops import wavefront_kernel
-from stereo_tpu_torch.ops.minplus import minplus_send, minplus_send_ref
+from stereo_tpu_torch.ops.minplus import (minplus_send_many,
+                                          minplus_send_many_ref)
 from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
 
 LT, RT, UP, DN = 0, 1, 2, 3
@@ -99,26 +101,32 @@ def unskew(s: torch.Tensor, W: int) -> torch.Tensor:
     return torch.gather(s, -1, idx)
 
 
-def _send(use_kernel: bool):
-    return minplus_send if use_kernel else minplus_send_ref
-
-
-def _send_head(gD, Mold, Q, D0, alpha, kernel, tol, use_kernel=True):
+def _head(gD, Mold, Q, D0, alpha):
     """Head-send: msg'[k_t] = min_{k_h}(gD[k_h] - Mold[k_h]
-    + a TR(Q[k_t] - D0[k_h])).
+    + a TR(Q[k_t] - D0[k_h])), as a problem (g, m, xt, ys, alpha) of
+    ``_sends``.
 
-    gD/Mold/Q/D0: [..., K, L] (leading axes broadcast); alpha: [..., L].
-    Returns (message minus its minimum over k_t, that minimum)."""
-    return _send(use_kernel)(gD - Mold, Q, D0, alpha, tol, kernel)
+    gD/Mold/Q/D0: [..., K, L] (leading axes broadcast); alpha: [..., L]."""
+    return gD, Mold, Q, D0, alpha
 
 
-def _send_tail(gD_tail, Mold, Q, D0, alpha, kernel, tol, use_kernel=True):
+def _tail(gD_tail, Mold, Q, D0, alpha):
     """Tail-send: msg'[k_h] = min_{k_t}(gD_tail[k_t] - Mold[k_t]
-    + a TR(Q[k_t] - D0[k_h])).
+    + a TR(Q[k_t] - D0[k_h])), as a problem of ``_sends``.
 
     The targets are the heads, so D0 and Q change places in the send (TR is
     even: |D0 - Q| = |Q - D0| exactly, and so are their squares)."""
-    return _send(use_kernel)(gD_tail - Mold, D0, Q, alpha, tol, kernel)
+    return gD_tail, Mold, D0, Q, alpha
+
+
+def _sends(problems, kernel, tol, use_kernel=True):
+    """The sends of one step (``_head`` / ``_tail`` problems), each read
+    from the state before the step: one launch of the send kernel for CUDA
+    tensors (``ops.minplus.minplus_send_many``), or with ``use_kernel=False``
+    the plain version of the same call.  Returns, per problem, (message
+    minus its minimum over the targets, that minimum)."""
+    send = minplus_send_many if use_kernel else minplus_send_many_ref
+    return send(problems, tol, kernel)
 
 
 # ------------------------------------------------------- t-leading columns
@@ -285,14 +293,14 @@ def _fwd_col(sk: _Skewed, M, t, use_kernel=True):
     Ac, Bcp1 = MA[c], MB[c + 1]
     gD = sk.gamma[c][None, :] * _beliefs_col(sk, MA, MB, c)
 
-    # E(p, RT) / E(p, DN): head-sends at this column (group A)
-    mh, _ = _send_head(gD[None], Ac, sk.QA[c], sk.D0[c][None], sk.aA[c],
-                       *ktol)
-    # E(rn, LT) / E(dn, UP): tail-sends into column c+1 (group B; the right
-    # neighbour shares the skew row, the down neighbour's source is row y-1)
+    # E(p, RT) / E(p, DN): head-sends at this column (group A); E(rn, LT) /
+    # E(dn, UP): tail-sends into column c+1 (group B; the right neighbour
+    # shares the skew row, the down neighbour's source is row y-1)
     gDt = torch.stack([gD, _shift_down(gD)], 0)
-    mt, _ = _send_tail(gDt, Bcp1, sk.QB[c + 1], sk.D0[c + 1][None],
-                       sk.aB[c + 1], *ktol)
+    (mh, _), (mt, _) = _sends([
+        _head(gD[None], Ac, sk.QA[c], sk.D0[c][None], sk.aA[c]),
+        _tail(gDt, Bcp1, sk.QB[c + 1], sk.D0[c + 1][None], sk.aB[c + 1])],
+        *ktol)
     # a dead edge keeps its old message
     MA[c] = torch.where(sk.vA[c][:, None, :] > 0, mh, Ac)
     MB[c + 1] = torch.where(sk.vB[c + 1][:, None, :] > 0, mt, Bcp1)
@@ -316,16 +324,16 @@ def _bwd_col(sk: _Skewed, M, t, use_kernel=True):
     lb = _msum(sk.pix[c] > 0, vminD, acc_t)
     gD = sk.gamma[c][None, :] * (D - vminD[None, :])
 
-    # E(p, LT) / E(p, UP): head-sends at this column (group B)
-    mh, vminh = _send_head(gD[None], Bc, sk.QB[c], sk.D0[c][None], sk.aB[c],
-                           *ktol)
+    # E(p, LT) / E(p, UP): head-sends at this column (group B); E(ln, RT) /
+    # E(un, DN): tail-sends into column c-1 (group A; the left neighbour
+    # shares the skew row, the up neighbour's source is row y+1)
+    gDt = torch.stack([gD, _shift_up(gD)], 0)
+    (mh, vminh), (mt, vmint) = _sends([
+        _head(gD[None], Bc, sk.QB[c], sk.D0[c][None], sk.aB[c]),
+        _tail(gDt, Acm1, sk.QA[c - 1], sk.D0[c - 1][None], sk.aA[c - 1])],
+        *ktol)
     vh = sk.vB[c]
     lb = lb + _msum(vh > 0, vminh, acc_t)
-    # E(ln, RT) / E(un, DN): tail-sends into column c-1 (group A; the left
-    # neighbour shares the skew row, the up neighbour's source is row y+1)
-    gDt = torch.stack([gD, _shift_up(gD)], 0)
-    mt, vmint = _send_tail(gDt, Acm1, sk.QA[c - 1], sk.D0[c - 1][None],
-                           sk.aA[c - 1], *ktol)
     vt = sk.vA[c - 1]
     lb = lb + _msum(vt > 0, vmint, acc_t)
     MB[c] = torch.where(vh[:, None, :] > 0, mh, Bc)
@@ -347,10 +355,11 @@ def _sweep_steps(sk: _Skewed, M, use_kernel=True):
 
 
 def sends_per_sweep(T: int) -> int:
-    """Calls of ``minplus_send`` in one ``sweep="steps"`` pass: per step one
-    batched head-send and one batched tail-send (a direction pair each),
-    over T forward and T backward steps."""
-    return 2 * 2 * T
+    """Launches of the send kernel (calls of ``_sends``) in one
+    ``sweep="steps"`` pass: one per step, its batched head-send and its
+    batched tail-send (a direction pair each) together, over T forward and
+    T backward steps."""
+    return 2 * T
 
 
 def _make_sweep_fn(sk: _Skewed, use_kernel: bool, sweep: str):

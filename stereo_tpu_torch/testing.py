@@ -114,6 +114,54 @@ def send_inputs(seed: int, B: int, K: int, L: int, dtype=np.float32):
     return tuple(np.ascontiguousarray(a.astype(dtype)) for a in out)
 
 
+def send_step_problems(seed: int, K: int, L: int, schedule: str = "banded",
+                       Lp: int | None = None, dtype=np.float32, to=None,
+                       negative: float = 0.0):
+    """The sends of one solver step as ``ops.minplus.minplus_send_many``
+    takes them, (g, m, xt, ys, alpha) each, shaped and strided as a step of
+    solvers/banded.py (``"banded"``: six problems) or solvers/wavefront.py
+    (``"wavefront"``: two) gives them.  The interior head-send reads one g
+    and one ys for its direction pair (a batch of 1 against 2: stride 0),
+    the tail-send one xt; the banded y-seam head-send reads its m through a
+    slice of a [K, Lp] array (label stride Lp), and the y-seam tail-send has
+    Lp >= L lanes.  ``to`` turns each numpy array into the caller's type
+    (a tensor on the card) before the views are taken; ``negative``: alpha
+    < 0 at that share of the lanes (where a kernel may not hoist the
+    truncation)."""
+    rng = np.random.default_rng(seed)
+    Lp = L if Lp is None else Lp
+    to = (lambda a: a) if to is None else to
+
+    def arr(lo, hi, *shape):
+        return to(np.ascontiguousarray(rng.uniform(lo, hi, shape).astype(
+            dtype)))
+
+    def alpha(*shape):
+        a = rng.uniform(0.5, 2.0, shape)
+        a = np.where(rng.uniform(size=shape) < negative, -a, a)
+        return to(np.ascontiguousarray(a.astype(dtype)))
+
+    gD = arr(0, 2, K, L)
+    problems = [
+        (gD[None], arr(0, 1, 2, K, L), arr(-3, 3, 2, K, L),
+         arr(-3, 3, 1, K, L), alpha(2, L)),                       # heads
+        (arr(0, 2, 2, K, L), arr(0, 1, 2, K, L), arr(-3, 3, 1, K, L),
+         arr(-3, 3, 2, K, L), alpha(2, L))]                       # tails
+    if schedule == "banded":
+        problems += [
+            (gD, arr(0, 1, K, L), arr(-3, 3, K, L), arr(-3, 3, K, L),
+             alpha(L)),                                           # x head
+            (gD, arr(0, 1, K, Lp)[:, :L], arr(-3, 3, K, L),
+             arr(-3, 3, K, L), alpha(L)),                         # y head
+            (arr(0, 2, K, L), arr(0, 1, K, L), arr(-3, 3, K, L),
+             arr(-3, 3, K, L), alpha(L)),                         # x tail
+            (arr(0, 2, K, Lp), arr(0, 1, K, Lp), arr(-3, 3, K, Lp),
+             arr(-3, 3, K, Lp), alpha(Lp))]                       # y tail
+    elif schedule != "wavefront":
+        raise ValueError(f"unknown schedule {schedule!r}")
+    return problems
+
+
 def pair_inputs(seed: int, K: int, H: int, W: int, dtype=np.float32):
     """Random inputs of ``ops.minplus.minplus_pair``: (H_A, H_B, P, R
     [K, H, W], alpha [H, W]); alpha is 0 on the first row and column, as a

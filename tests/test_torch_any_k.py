@@ -144,14 +144,17 @@ def _capture_step(bp, t, backward, monkeypatch):
     spec = bp.spec
     sources = []
 
-    def fake(src, old, *args, **kw):
-        sources.append(src)
-        shape = torch.broadcast_shapes(src.shape, old.shape)
-        return (torch.ones(shape, dtype=old.dtype),
-                torch.zeros(shape[:-2] + shape[-1:], dtype=old.dtype))
+    def fake(problems, *args, **kw):
+        out = []
+        for src, old, *_ in problems:
+            sources.append(src)
+            shape = torch.broadcast_shapes(src.shape, old.shape)
+            out.append((torch.ones(shape, dtype=old.dtype),
+                        torch.zeros(shape[:-2] + shape[-1:],
+                                    dtype=old.dtype)))
+        return out
 
-    monkeypatch.setattr(t_banded, "_send_head", fake)
-    monkeypatch.setattr(t_banded, "_send_tail", fake)
+    monkeypatch.setattr(t_banded, "_sends", fake)
     c = t + 1
     bp.theta.zero_()
     bp.theta[c, 0] = torch.arange(1, spec.L + 1, dtype=bp.theta.dtype)

@@ -310,7 +310,7 @@ def test_steps_and_fused_sweeps_agree_on_cpu(H, W, Bh, Bw):
     with pytest.raises(ValueError, match="sweep"):
         t_banded.solve_banded(*prob, **kw, sweep="scan")
     assert t_banded.sends_per_sweep(t_banded.BandedSpec(H, W, Bh, Bw)) == (
-        12 * (Bh + Bw - 1))
+        2 * (Bh + Bw - 1))
 
 
 # ------------------------------------------------- state across the packages

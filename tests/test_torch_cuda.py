@@ -135,6 +135,51 @@ def test_send_kernel_bitwise_on_card(cuda, B, K, L, kernel):
         assert torch.equal(g, r)
 
 
+# a banded step's six problems and a wavefront step's two, gathered in one
+# launch: one block a tile (teddy's L = 1536 banded, K = 79 and 202) and a
+# tile split over a cluster (few tiles: L = 53, and the wavefront step at
+# L = 375); K beyond one thread's targets, one pass and shared memory's old
+# staging limit; a < 0 at a third of the lanes; tol with almost every term
+# truncated, and with none
+SEND_STEPS = [("banded", 79, 1536), ("banded", 202, 1536),
+              ("wavefront", 79, 375)] + [
+    (sched, K, 53) for sched in ("banded", "wavefront")
+    for K in (1, 3, 17, 41, 97, 1000)]
+
+
+@pytest.mark.parametrize("tol,negative", PHASE_VARIANTS)
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("schedule,K,L", SEND_STEPS)
+def test_send_many_bitwise_on_card(cuda, schedule, K, L, kernel, tol,
+                                   negative):
+    problems = testing.send_step_problems(
+        K + L, K, L, schedule, Lp=L if L > 100 else 96,
+        negative=1 / 3 if negative else 0.0,
+        to=lambda a: torch.as_tensor(a, device=cuda))
+    tol = 1.1 if tol is None else tol
+    before = t_mp.minplus_send.launches
+    got = t_mp.minplus_send_many(problems, tol, kernel)
+    torch.cuda.synchronize()
+    assert t_mp.minplus_send.launches == before + 1
+    ref = t_mp.minplus_send_many_ref(problems, tol, kernel)
+    for g, r in zip(got, ref):
+        assert torch.equal(g[0], r[0]) and torch.equal(g[1], r[1])
+
+
+def test_send_many_raises_on_card_for_bad_input(cuda):
+    problems = testing.send_step_problems(
+        0, 3, 40, "banded", to=lambda a: torch.as_tensor(a, device=cuda))
+    g, m, xt, ys, alpha = problems[2]
+    with pytest.raises(ValueError, match="float32"):
+        t_mp.minplus_send_many([(g, m.double(), xt, ys, alpha)], 1.0, 1)
+    with pytest.raises(ValueError, match="expected"):
+        t_mp.minplus_send_many([(g, m, xt.cpu(), ys, alpha)], 1.0, 1)
+    with pytest.raises(ValueError, match="shape"):
+        t_mp.minplus_send_many([(g, m, xt, ys, alpha[:-1])], 1.0, 1)
+    with pytest.raises(ValueError, match="problems"):
+        t_mp.minplus_send_many(problems + problems[:3], 1.0, 1)
+
+
 def _banded_problem(cuda, K, H, W, Bh, Bw, kernel):
     prob = [torch.as_tensor(a, device=cuda)
             for a in testing.trws_problem(K + H, K, H, W, np.float32)]
@@ -227,6 +272,27 @@ def test_pair_kernel_bitwise_on_card(cuda, K, H, W, kernel):
     torch.cuda.synchronize()
     assert t_mp.minplus_pair.launches == before + 1
     ref = t_mp.minplus_pair_ref(*args, 1.1, kernel)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("tol,negative", PHASE_VARIANTS[1:])
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("K,H,W", [(3, 19, 53), (17, 19, 53), (79, 19, 53),
+                                   (202, 5, 53)])
+def test_pair_kernel_hoist_cases_on_card(cuda, K, H, W, kernel, tol,
+                                         negative):
+    """a < 0 at a third of the pixels (the plain-term branch) and tol with
+    almost every term truncated, and with none."""
+    inp = list(testing.pair_inputs(K, K, H, W))
+    if negative:
+        flip = np.random.default_rng(K).uniform(size=(H, W)) < 1 / 3
+        inp[4] = np.where(flip, -inp[4], inp[4]).astype(np.float32)
+    args = [torch.as_tensor(a, device=cuda) for a in inp]
+    tol = 1.1 if tol is None else tol
+    got = t_mp.minplus_pair(*args, tol, kernel)
+    torch.cuda.synchronize()
+    ref = t_mp.minplus_pair_ref(*args, tol, kernel)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
 

@@ -80,9 +80,10 @@ def test_leading_axes_broadcast():
 
 @pytest.mark.parametrize("kernel", [1, 2])
 def test_head_and_tail_operand_order(kernel):
-    """_send_head: targets carry Q; _send_tail: targets carry D0 and the
-    operands change places — against the formulas of the JAX package's
-    solvers/wavefront.py, which never swaps them (TR is even)."""
+    """_head: targets carry Q; _tail: targets carry D0 and the operands
+    change places — against the formulas of the JAX package's
+    solvers/wavefront.py, which never swaps them (TR is even); each sent
+    through _sends alone and both in one call."""
     rng = np.random.default_rng(kernel)
     K, L = 6, 13
     gD, Mold = rng.uniform(0, 2, (2, K, L)), rng.uniform(0, 1, (2, K, L))
@@ -99,14 +100,17 @@ def test_head_and_tail_operand_order(kernel):
     acc = (Hs[:, :, None, :] + term).min(axis=1)
     args = [torch.as_tensor(a) for a in (gD, Mold, Q, D0, alpha)]
     for use_kernel in (True, False):
-        m, v = t_wavefront._send_head(*args, kernel, tol, use_kernel)
+        (m, v), = t_wavefront._sends([t_wavefront._head(*args)], kernel, tol,
+                                     use_kernel)
         np.testing.assert_allclose(v.numpy(), acc.min(axis=1), atol=1e-12)
         np.testing.assert_allclose(m.numpy(), acc - acc.min(axis=1)[:, None],
                                    atol=1e-12)
     # tail: msg[kh] = min_kt Hs[kt] + a TR(Q[kt] - D0[kh])
     term = alpha[:, None, None, :] * tr(Q[:, :, None, :] - D0[:, None, :, :])
     acc = (Hs[:, :, None, :] + term).min(axis=1)
-    m, v = t_wavefront._send_tail(*args, kernel, tol)
+    both = t_wavefront._sends([t_wavefront._head(*args),
+                               t_wavefront._tail(*args)], kernel, tol)
+    m, v = both[1]
     np.testing.assert_allclose(v.numpy(), acc.min(axis=1), atol=1e-12)
     np.testing.assert_allclose(m.numpy(), acc - acc.min(axis=1)[:, None],
                                atol=1e-12)

@@ -233,7 +233,7 @@ def test_steps_and_fused_sweeps_agree_on_cpu(H, W):
             assert float(got.lower_bound) == float(ref.lower_bound)
     with pytest.raises(ValueError, match="sweep"):
         t_wf.solve_wavefront(*prob, **kw, sweep="scan")
-    assert t_wf.sends_per_sweep(H + W - 1) == 4 * (H + W - 1)
+    assert t_wf.sends_per_sweep(H + W - 1) == 2 * (H + W - 1)
 
 
 def test_a_sweep_updates_the_state_in_place_and_keeps_dead_edges():
@@ -369,14 +369,17 @@ def _capture_step(sk, t, backward, monkeypatch):
     change are what the step writes.  -> ((MA, MB), sources by segment)."""
     sources = []
 
-    def fake(src, old, *args, **kw):
-        sources.append(src)
-        shape = torch.broadcast_shapes(src.shape, old.shape)
-        return (torch.ones(shape, dtype=old.dtype),
-                torch.zeros(shape[:-2] + shape[-1:], dtype=old.dtype))
+    def fake(problems, *args, **kw):
+        out = []
+        for src, old, *_ in problems:
+            sources.append(src)
+            shape = torch.broadcast_shapes(src.shape, old.shape)
+            out.append((torch.ones(shape, dtype=old.dtype),
+                        torch.zeros(shape[:-2] + shape[-1:],
+                                    dtype=old.dtype)))
+        return out
 
-    monkeypatch.setattr(t_wf, "_send_head", fake)
-    monkeypatch.setattr(t_wf, "_send_tail", fake)
+    monkeypatch.setattr(t_wf, "_sends", fake)
     sk.theta.zero_()
     sk.theta[t + 1, 0] = torch.arange(1, sk.H + 1, dtype=sk.theta.dtype)
     sk.gamma.fill_(1.0)
