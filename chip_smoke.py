@@ -61,7 +61,19 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
  11. runs each fused sweep (banded and wavefront) twice from one warm state
      at teddy K = 79 and checks that both runs give the same bits (a race
      between the ready flags and the reads they guard would differ);
- 12. times every kernel at the teddy K = 79 shape (CUDA events) beside its
+ 12. drives examples/run_global_torch.py at full size: DispMapGlobalStereo
+     on data/teddy (375x450, 237 disparities; segmentation weights from the
+     mean-shift filter on the card), 14 SegPln proposals, one binary fusion
+     each; checks that the energy never rises; then times each of SegPln's
+     14 segmentations alone and counts its segments;
+ 13. drives examples/run_simultaneous_torch.py at full size, cut in depth:
+     DispMapGlobalStereo on data/baby2 (370x413, 256 disparities), 14
+     SegPln proposals fused to convergence, a restart, then simultaneous
+     fusion at K = 15 on the banded schedule (64 sweeps, a decode every 16,
+     one launch of kernel 5 a sweep), lb <= E; then the first 2 banded
+     sweeps, and 8 sweeps each on the checkerboard (kernel 1) and wavefront
+     (kernel 6) schedules, through the kernels and their plain versions;
+ 14. times every kernel at the teddy K = 79 shape (CUDA events) beside its
      plain version and its byte / operation bounds (the fused sweeps also at
      K = 15 and K = 202, beside their plain versions; the column send also
      as the one launch of a banded and of a wavefront step), and prints the
@@ -89,14 +101,21 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False — "
                      "this script runs on an NVIDIA GPU only")
 
-from stereo_tpu_torch import testing  # noqa: E402
-from stereo_tpu_torch.models.ncc import (  # noqa: E402
-    DispMapNCC, grid_proposals)
-from stereo_tpu_torch.ops import (  # noqa: E402
-    _build, banded_kernel, minplus, phase_kernel, wavefront_kernel)
-from stereo_tpu_torch.solvers import banded, trws, wavefront  # noqa: E402
-from stereo_tpu_torch.utils import io  # noqa: E402
-from stereo_tpu_torch.utils.metrics import EnergyTrace  # noqa: E402
+try:
+    from stereo_tpu_torch import testing
+    from stereo_tpu_torch.config import CVPR08Options
+    from stereo_tpu_torch.models.global_stereo import DispMapGlobalStereo
+    from stereo_tpu_torch.models.ncc import DispMapNCC, grid_proposals
+    from stereo_tpu_torch.ops import (
+        _build, banded_kernel, minplus, phase_kernel, wavefront_kernel)
+    from stereo_tpu_torch.proposals import segmentation
+    from stereo_tpu_torch.proposals import segpln as segpln_mod
+    from stereo_tpu_torch.solvers import banded, trws, wavefront
+    from stereo_tpu_torch.utils import io
+    from stereo_tpu_torch.utils.metrics import EnergyTrace
+except ModuleNotFoundError as exc:
+    raise SystemExit(f"chip_smoke.py: {exc}; run it from the root of a "
+                     "checkout of the repository, beside stereo_tpu_torch/")
 
 DEV = torch.device("cuda")
 
@@ -190,6 +209,15 @@ GLOBAL_STAGE_JOBS = 2000
 GRID_STEP_WIDE, K_WIDE = 30, 202
 WIDE_SWEEPS = 8
 PLAIN_SWEEPS_WIDE = 2
+# example_global: teddy, 14 SegPln proposals, one binary fusion each
+GLOBAL_PAIR, GLOBAL_SIZE = "teddy", (375, 450)
+# example_simultaneous: baby2, fusion to convergence, then K = 15 on the
+# banded schedule, cut from run_simultaneous_torch.py's 3000 sweeps to 64
+# with a decode every 16; the first 2 sweeps again through kernel 5's plain
+# version, and 8 sweeps each on the checkerboard and wavefront schedules
+SIM_PAIR, SIM_SIZE, SIM_K = "baby2", (370, 413), 15
+SIM_SWEEPS, SIM_CHECK_EVERY, SIM_MAX_RELGAP = 64, 16, 1e-5
+SIM_PLAIN_SWEEPS, SIM_OTHER_SWEEPS = 2, 8
 
 
 def check(ok, what: str):
@@ -1044,6 +1072,226 @@ def phase_full_grid_path() -> dict:
     return counts
 
 
+# ------------------------------- 13. example_global: SegPln on teddy
+def segmentation_census(im_ref) -> list:
+    """Each of SegPln's 14 segmentations of ``im_ref`` alone: its seconds
+    (the mean-shift filter on the card, the merge or the graph-based
+    segmentation on the host) and its number of segments."""
+    rows = []
+    for b, mult in enumerate(segpln_mod.MULTS):
+        sp = segpln_mod.SEGMENT_PARAMS * mult
+        t0 = time.perf_counter()
+        if b < segpln_mod.N_MEAN_SHIFT:
+            labels = segmentation.mean_shift(im_ref, int(sp[0]), float(sp[1]),
+                                             int(sp[2]), device=DEV)
+            kind = dict(method="mean_shift", h_s=int(sp[0]),
+                        h_r=float(sp[1]), min_region=int(sp[2]),
+                        window_offsets=len(
+                            segmentation.window_offsets(int(sp[0]))))
+        else:
+            labels = segmentation.felzenszwalb(im_ref, 0.0, float(sp[3]),
+                                               int(sp[2]))
+            kind = dict(method="felzenszwalb", k=float(sp[3]),
+                        min_size=int(sp[2]))
+        secs = time.perf_counter() - t0
+        check(labels.shape == im_ref.shape[:2] and labels.min() >= 1,
+              f"segmentation {b}: labels {labels.shape}, min {labels.min()}")
+        rows.append(dict(b=b, mult=int(mult), **kind,
+                         segments=int(len(np.unique(labels))),
+                         seconds=secs))
+    return rows
+
+
+def make_global_model(pair_name: str):
+    """DispMapGlobalStereo on a bundled pair, CVPR08 defaults, seed 0, and
+    the seconds it took."""
+    pair = io.load_pair(pair_name, dtype=np.float32)
+    t0 = time.perf_counter()
+    dm = DispMapGlobalStereo(pair.images, pair.P, pair.disp_range,
+                             pair.disparity_factor, CVPR08Options(), seed=0,
+                             device=DEV)
+    torch.cuda.synchronize()
+    return dm, time.perf_counter() - t0
+
+
+def check_proposals(dm, props):
+    H, W = dm.sz
+    check(len(props) == len(segpln_mod.MULTS),
+          f"{len(props)} SegPln proposals, expected {len(segpln_mod.MULTS)}")
+    for p in props:
+        check(tuple(p.shape) == (4, H, W) and p.is_cuda
+              and bool(torch.isfinite(p).all()),
+              "a SegPln proposal is not a finite [4, H, W] tensor on the card")
+
+
+def phase_global_path():
+    """examples/run_global_torch.py at full size: DispMapGlobalStereo on
+    teddy, 14 SegPln proposals, one binary fusion each; the energy never
+    rises."""
+    dm, t_setup = make_global_model(GLOBAL_PAIR)
+    H, W = dm.sz
+    check((H, W) == GLOBAL_SIZE, f"teddy is {(H, W)}")
+    e_init = dm.energy()
+    weight_segments = int(len(np.unique(dm.segments)))
+    t0 = time.perf_counter()
+    props = dm.segpln(seed=0)
+    torch.cuda.synchronize()
+    t_segpln = time.perf_counter() - t0
+    check_proposals(dm, props)
+    energies, t0 = [], time.perf_counter()
+    for p in props:
+        e, lb = dm.binary_fusion(p)
+        energies.append(e)
+    torch.cuda.synchronize()
+    t_fuse = time.perf_counter() - t0
+    check(np.isfinite(energies).all(), "binary fusion energy not finite")
+    # the returned energies are float32 sums of ~1.7e5 terms, taken by two
+    # routes (keep vs fuse), so a step is allowed their rounding
+    trace = [e_init] + energies
+    check(all(b <= a + 1e-6 * abs(a) for a, b in zip(trace, trace[1:])),
+          f"binary fusion energy rose: {trace}")
+    check(energies[-1] < e_init, "SegPln fusion did not lower the energy")
+    assert_on_card(dm)
+    e_stored = dm.energy()
+    dm.assignment = dm.assignment
+    check(abs(dm.energy() - e_stored) <= 1e-4 * abs(e_stored),
+          "energy of the fused assignment disagrees")
+    im_ref = dm.images[0].cpu().numpy()
+    census = segmentation_census(im_ref)
+    say("global_path", pair=GLOBAL_PAIR, size=[H, W],
+        disparities=len(dm.disps), setup_seconds=t_setup,
+        segpln_seconds=t_segpln, fusion_seconds=t_fuse,
+        fusion_moves=len(props), initial_energy=e_init,
+        final_energy=energies[-1], energy_trace=energies,
+        weight_segments=weight_segments, segmentations=census,
+        timings=dm.timings.seconds)
+    del dm, props
+    torch.cuda.empty_cache()
+
+
+# ------------------------- 14. example_simultaneous: baby2 at K = 15
+def schedule_vs_plain(dm, props, schedule: str, sweeps: int,
+                      kernel_name: str, launches_per_sweep: int) -> dict:
+    """``sweeps`` sweeps of simultaneous fusion from a restart under
+    ``schedule``, through the kernels and through their plain versions on the
+    card: labels and energy equal, bounds within 1e-5; the kernel launches of
+    the first run are counted."""
+    dm.schedule = schedule
+    dm.maxiter = dm.check_every = sweeps
+    dm.solver_chunk = dm.solver_chunk_banded = sweeps
+    dm.solver_chunk_wavefront = sweeps
+    out = {}
+    for use_kernel in (True, False):
+        dm.restart()
+        dm.use_kernel = use_kernel
+        reset_counts()
+        t0 = time.perf_counter()
+        e, lb, it = dm.simultaneous_fusion(props)
+        torch.cuda.synchronize()
+        out[use_kernel] = (e, lb, it, dm.assignment.clone(),
+                           time.perf_counter() - t0, read_counts())
+    dm.use_kernel = True
+    (ek, lbk, itk, ak, tk, ck), (ep, lbp, _, ap, tp, _) = out[True], out[False]
+    check(itk == sweeps and ck[kernel_name] == launches_per_sweep * sweeps,
+          f"{schedule} at K = {SIM_K}: {ck[kernel_name]} launches of "
+          f"{kernel_name} in {itk} sweeps")
+    check(torch.equal(ak, ap) and ek == ep
+          and abs(lbk - lbp) <= 1e-5 * abs(lbp),
+          f"{schedule} at K = {SIM_K}, kernel vs plain version after "
+          f"{sweeps} sweeps: E {ek} vs {ep}, lb {lbk} vs {lbp}, labels equal "
+          f"{torch.equal(ak, ap)}")
+    check(np.isfinite([ek, lbk]).all() and lbk <= ek,
+          f"{schedule} at K = {SIM_K}: lb {lbk} > E {ek}")
+    return dict(sweeps=sweeps, energy=ek, lower_bound=lbk,
+                plain_lower_bound=lbp, labels_equal=True,
+                launches={kernel_name: ck[kernel_name]}, kernel_seconds=tk,
+                plain_seconds=tp)
+
+
+def phase_simultaneous_path() -> dict:
+    """examples/run_simultaneous_torch.py at full size, cut in depth:
+    DispMapGlobalStereo on baby2, 14 SegPln proposals fused to convergence,
+    a restart, then simultaneous fusion at K = 15 on the banded schedule
+    (SIM_SWEEPS sweeps, a decode every SIM_CHECK_EVERY); the first sweeps
+    again through kernel 5's plain version, and a few sweeps on the
+    checkerboard (kernel 1) and wavefront (kernel 6) schedules against
+    theirs.  Returns the launches of kernels 1, 5 and 6 on this path."""
+    dm, t_setup = make_global_model(SIM_PAIR)
+    H, W = dm.sz
+    check((H, W) == SIM_SIZE, f"baby2 is {(H, W)}")
+    e_init = dm.energy()
+    t0 = time.perf_counter()
+    props = dm.segpln(seed=0)
+    torch.cuda.synchronize()
+    t_segpln = time.perf_counter() - t0
+    check_proposals(dm, props)
+
+    t0 = time.perf_counter()
+    moves = dm.binary_fuse_until_convergence(props, seed=0)
+    torch.cuda.synchronize()
+    t_iter = time.perf_counter() - t0
+    e_iter = dm.energy()
+    check(np.isfinite(e_iter) and e_iter < e_init,
+          f"fusion to convergence: E {e_iter} from {e_init}")
+
+    dm.restart()
+    dm.schedule, dm.band = "banded", BAND
+    dm.maxiter, dm.check_every = SIM_SWEEPS, SIM_CHECK_EVERY
+    dm.max_relgap = SIM_MAX_RELGAP
+    dm.solver_chunk_banded = SIM_CHECK_EVERY  # one stopping-rule check each
+    trace = EnergyTrace()
+    reset_counts()
+    t0 = time.perf_counter()
+    e, lb, iters = dm.simultaneous_fusion(props, trace=trace)
+    torch.cuda.synchronize()
+    t_sim = time.perf_counter() - t0
+    counts = read_counts()
+    assert_on_card(dm)
+    check(tuple(dm.assignment.shape) == (4, H, W)
+          and bool(torch.isfinite(dm.assignment).all()),
+          "assignment not a finite [4, H, W]")
+    check(np.isfinite([e, lb]).all() and lb <= e, f"lb {lb} > E {e}")
+    check(all(s["lower_bound"] <= s["energy"] for s in trace.samples),
+          "lb > E at a check")
+    lbs = [s["lower_bound"] for s in trace.samples]
+    check(all(b >= a - 1e-5 * abs(lbs[-1]) for a, b in zip(lbs, lbs[1:])),
+          f"lower bound decreased between checks: {lbs}")
+    check(iters > 0 and counts["sweep_banded"] == iters,
+          f"fused banded sweep launches {counts['sweep_banded']} != 1 per "
+          f"sweep x {iters} sweeps")
+    e_stored = dm.energy()
+    dm.assignment = dm.assignment
+    check(abs(dm.energy() - e_stored) <= 1e-4 * abs(e_stored),
+          "energy of the decoded assignment disagrees")
+    spec = banded.BandedSpec(H, W, min(BAND, H), min(BAND, W))
+    say("simultaneous_path", pair=SIM_PAIR, size=[H, W],
+        disparities=len(dm.disps), K=len(props) + 1, setup_seconds=t_setup,
+        segpln_seconds=t_segpln, initial_energy=e_init,
+        iterative_moves=moves - 1, iterative_energy=e_iter,
+        iterative_seconds=t_iter, blocks=[spec.Bh, spec.Bw], steps=spec.T,
+        simultaneous_energy=e, lower_bound=lb, sweeps=iters,
+        check_every=SIM_CHECK_EVERY, max_relgap=SIM_MAX_RELGAP,
+        simultaneous_seconds=t_sim, ratio=e / e_iter, lb_trace=lbs,
+        energy_trace=trace.energies, launches=counts,
+        timings=dm.timings.seconds)
+
+    runs = {"banded": schedule_vs_plain(dm, props, "banded", SIM_PLAIN_SWEEPS,
+                                        "sweep_banded", 1)}
+    runs["checkerboard"] = schedule_vs_plain(
+        dm, props, "checkerboard", SIM_OTHER_SWEEPS,
+        "phase_messages_compact", 2)
+    runs["wavefront"] = schedule_vs_plain(
+        dm, props, "wavefront", SIM_OTHER_SWEEPS, "sweep_wavefront", 1)
+    say("simultaneous_path_vs_plain", K=len(props) + 1, **runs)
+    del dm, props
+    torch.cuda.empty_cache()
+    return {"sweep_banded": counts["sweep_banded"],
+            "phase_messages_compact":
+                runs["checkerboard"]["launches"]["phase_messages_compact"],
+            "sweep_wavefront":
+                runs["wavefront"]["launches"]["sweep_wavefront"]}
+
+
 # ------------------------------------------------------------ 5. timings
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
@@ -1394,6 +1642,8 @@ def main():
     phase_wide_k()
     banded_sweep_repeatable()
     wavefront_sweep_repeatable()
+    phase_global_path()
+    baby2_counts = phase_simultaneous_path()
     launches = {
         "phase_messages_compact": main_counts["phase_messages_compact"],
         "phase_messages": full_counts["phase_messages"],
@@ -1405,6 +1655,9 @@ def main():
         "sweep_wavefront": wavefront_counts["sweep_wavefront"]}
 
     rows = phase_timings(launches, err)
+    for r in rows:
+        if r["name"] in baby2_counts:
+            r["launches_baby2_k15"] = baby2_counts[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """State carried across from the JAX package, as numpy arrays.
 
-Build the port's solver problem or its ``DispMapNCC`` from arrays the JAX
-package produced (``np.asarray`` of them), so that both packages compute the
-same thing from the same state — e.g. inject the JAX NCC volume and
-assignment to compare the fusion moves apart from volume building.
+Build the port's solver problem, its ``DispMapNCC`` or its
+``DispMapGlobalStereo`` from arrays the JAX package produced (``np.asarray``
+of them), so that both packages compute the same thing from the same state —
+e.g. inject the JAX NCC volume and assignment to compare the fusion moves
+apart from volume building.
 Nothing of the JAX package is imported here.
 """
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from stereo_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from stereo_tpu_torch.models.global_stereo import DispMapGlobalStereo
 from stereo_tpu_torch.models.ncc import DispMapNCC
 
 
@@ -58,6 +60,32 @@ def dispmap_ncc_from_numpy(images, disparities, kernel, unary_weight, tol,
         dm.smooth_weights = dm._tensor(smooth_weights)
     # setting the assignment recomputes the stored energy
     dm.assignment = dm.assignment if assignment is None else assignment
+    return dm
+
+
+def dispmap_global_from_numpy(images, P, disp_range, disparity_factor,
+                              options=None, *, start_disparity=None,
+                              segments=None, smooth_weights=None,
+                              device=DEFAULT_DEVICE, **kw):
+    """A ``DispMapGlobalStereo`` on ``device`` carrying numpy state.
+
+    The model is built as usual, then takes ``start_disparity`` [H,W] (the
+    random initial field's disparities), ``segments`` [H,W] (the
+    segmentation its smoothness weights come from; the weights are
+    recomputed from it) or ``smooth_weights`` [4,H,W] (used as they are),
+    and restarts, so its stored energy is that of the carried state.
+    ``options`` is the port's ``CVPR08Options`` (None: the defaults)."""
+    if segments is not None and smooth_weights is not None:
+        raise ValueError("pass segments or smooth_weights, not both")
+    dm = DispMapGlobalStereo(images, P, disp_range, disparity_factor, options,
+                             device=device, **kw)
+    if segments is not None:
+        dm._weights_from_segments(segments)
+    if smooth_weights is not None:
+        dm.smooth_weights = dm._tensor(smooth_weights)
+    if start_disparity is not None:
+        dm.start_disparity = dm._tensor(start_disparity)
+    dm.restart()
     return dm
 
 

@@ -45,10 +45,14 @@ def default_weights(H: int, W: int, dtype=torch.float32,
 
 
 def normalized(x, normalize: tuple | None):
-    """(x - d_min) / d_step for normalize = (d_min, d_step); x if None."""
+    """(x - d_min) / d_step for normalize = (d_min, d_step); x if None.
+
+    The divisor is a 0-dim tensor on x's device: a CUDA division by a Python
+    number is a multiplication by its reciprocal, which can differ in the
+    last bit from the division the CPU and the JAX package take."""
     if normalize is None:
         return x
-    return (x - normalize[0]) / normalize[1]
+    return (x - normalize[0]) / x.new_full((), normalize[1])
 
 
 def pairwise_energy_map(planes, weights, kernel: int, tol,

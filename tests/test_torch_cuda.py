@@ -387,3 +387,72 @@ def test_wavefront_and_pair_wrappers_raise_on_card_for_bad_input(cuda):
     got = t_mp.minplus_send(*wide, 1.0, 1)
     ref = t_mp.minplus_send_ref(*wide, 1.0, 1)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+# ------------------------------------------------ the SegPln chain's ops
+# (plain PyTorch, not kernels of this package: the same functions on the
+# card and on the CPU, where a division by a Python number, a reduction
+# order or a fused multiply-add would show)
+
+
+def _baby2_crop(y0, x0, h, w):
+    from stereo_tpu_torch.utils import io
+
+    pair = io.load_pair("baby2", dtype=np.float32)
+    return [np.ascontiguousarray(im[y0:y0 + h, x0:x0 + w])
+            for im in pair.images]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("crop", [(60, 90, 24, 32), (100, 120, 96, 128)])
+def test_mean_shift_filter_card_equals_cpu(cuda, crop, dtype):
+    from stereo_tpu_torch.proposals import segmentation
+
+    im = _baby2_crop(*crop)[0].astype(dtype)
+    luv = segmentation.rgb_to_luv(im)
+    on_cpu = segmentation.mean_shift_filter(luv, 4, 6.5)
+    on_card = segmentation.mean_shift_filter(luv.to(cuda), 4, 6.5)
+    assert on_card.is_cuda and on_card.dtype == on_cpu.dtype
+    same = (on_card.cpu() == on_cpu).all(dim=-1)
+    print(f"mean-shift filter, baby2 crop {crop}, {np.dtype(dtype).name}: "
+          f"{int(same.sum())} of {same.numel()} pixels bit-identical, "
+          f"largest difference "
+          f"{float((on_card.cpu() - on_cpu).abs().max()):.3g}")
+    assert bool(same.all())
+
+
+def test_valid_average_and_unary_card_vs_cpu(cuda):
+    from stereo_tpu_torch.ops import filters, photo
+    from stereo_tpu_torch.utils import io
+
+    pair = io.load_pair("baby2", dtype=np.float32)
+    H, W, _ = pair.images[0].shape
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0.0, np.log(2.0), (16, H, W)).astype(np.float32)
+    a_cpu = filters.valid_average_2d(torch.as_tensor(x), 2)
+    a_card = filters.valid_average_2d(torch.as_tensor(x, device=cuda), 2)
+    err_avg = float((a_card.cpu() - a_cpu).abs().max())
+    planes = np.zeros((4, H, W), np.float32)
+    planes[0] = rng.normal(0, 0.05, (H, W))
+    planes[1] = rng.normal(0, 0.05, (H, W))
+    planes[2] = 1.0
+    planes[3] = -rng.uniform(0, 255, (H, W))
+
+    def unary(dev):
+        ims = [torch.as_tensor(im, device=dev) for im in pair.images]
+        return photo.unary_cost(
+            torch.as_tensor(planes, device=dev), ims[0], ims[1],
+            torch.as_tensor(pair.P[1], dtype=torch.float32, device=dev),
+            30.0, d_min=0.0, d_step=255.0)
+
+    u_cpu, u_card = unary("cpu"), unary(cuda)
+    err_u = float((u_card.cpu() - u_cpu).abs().max())
+    print(f"baby2 {H}x{W}: valid_average_2d largest difference {err_avg:.3g}"
+          f" ({int((a_card.cpu() == a_cpu).sum())} of {a_cpu.numel()} equal);"
+          f" unary_cost largest difference {err_u:.3g} "
+          f"({int((u_card.cpu() == u_cpu).sum())} of {u_cpu.numel()} equal)")
+    # shifted adds and an IEEE division: the same bits
+    assert err_avg == 0.0
+    # exp and log of the card's math library may differ from the CPU's by
+    # a few ulp of values below log 2
+    assert err_u <= 1e-6

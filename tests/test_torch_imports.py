@@ -1,5 +1,5 @@
 """The port stands alone: no file under stereo_tpu_torch/, nor chip_smoke.py,
-the port's example or its two tools, imports jax, anything of stereo_tpu, or
+the port's examples or its three tools, imports jax, anything of stereo_tpu, or
 PIL (an AST scan — the interpreter may have jax loaded already, so
 sys.modules cannot tell).  And with no card present, an entry point called with its default
 device raises instead of computing on the CPU."""
@@ -20,8 +20,11 @@ FILES = sorted(
               recursive=True)
     + [os.path.join(ROOT, "chip_smoke.py"),
        os.path.join(ROOT, "examples", "run_ncc_torch.py"),
+       os.path.join(ROOT, "examples", "run_global_torch.py"),
+       os.path.join(ROOT, "examples", "run_simultaneous_torch.py"),
        os.path.join(ROOT, "tools", "profile_main_path.py"),
-       os.path.join(ROOT, "tools", "time_banded_kernel.py")])
+       os.path.join(ROOT, "tools", "time_banded_kernel.py"),
+       os.path.join(ROOT, "tools", "profile_segpln.py")])
 
 
 def _imports(path):
@@ -45,7 +48,15 @@ def test_files_found():
                  "stereo_tpu_torch/ops/wavefront_kernel.py",
                  "stereo_tpu_torch/ops/minplus.py",
                  "stereo_tpu_torch/ops/phase_kernel.py",
-                 "stereo_tpu_torch/models/ncc.py", "chip_smoke.py"):
+                 "stereo_tpu_torch/models/ncc.py",
+                 "stereo_tpu_torch/config.py",
+                 "stereo_tpu_torch/native/__init__.py",
+                 "stereo_tpu_torch/proposals/segmentation.py",
+                 "stereo_tpu_torch/proposals/segpln.py",
+                 "stereo_tpu_torch/ops/photo.py",
+                 "stereo_tpu_torch/models/global_stereo.py",
+                 "examples/run_global_torch.py",
+                 "examples/run_simultaneous_torch.py", "chip_smoke.py"):
         assert must in names
     assert all(os.path.exists(f) for f in FILES)
 
@@ -106,8 +117,35 @@ def test_default_device_raises_without_card():
     with pytest.raises(RuntimeError, match="cuda"):
         DispMapNCC([im0, im1], np.arange(4), kernel=1, unary_weight=40.0,
                    tol=8.0, schedule="wavefront")
+    from stereo_tpu_torch.proposals import segmentation, segpln
+    from stereo_tpu_torch.models.global_stereo import DispMapGlobalStereo
+
+    P = np.zeros((2, 3, 4))
+    P[:, :, :3] = np.eye(3)
+    P[1, 0, 3] = -1.0
+    with pytest.raises(RuntimeError, match="cuda"):
+        DispMapGlobalStereo([im0, im1], P, (0, 3), 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        segmentation.mean_shift(im0, 4, 5.0, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        segpln.segpln([im0, im1], list(P), np.arange(3, -1, -1), 30.0)
     # asked for explicitly, the CPU is fine
     assert geometry.fronto_parallel(4, 5, 1.0, device="cpu").shape == (4, 4, 5)
+
+
+@pytest.mark.parametrize("name", ["run_global_torch",
+                                  "run_simultaneous_torch"])
+def test_examples_raise_without_card(name, monkeypatch):
+    """The two SegPln examples run on the card by default and raise without
+    one; they never carry on on the CPU unless asked."""
+    _skip_if_card()
+    import runpy
+    import sys
+
+    monkeypatch.setattr(sys, "argv", [name, "--pair", "synth"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        runpy.run_path(os.path.join(ROOT, "examples", name + ".py"),
+                       run_name="__main__")
 
 
 def test_unported_options_raise():
