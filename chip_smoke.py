@@ -73,11 +73,26 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      one launch of kernel 5 a sweep), lb <= E; then the first 2 banded
      sweeps, and 8 sweeps each on the checkerboard (kernel 1) and wavefront
      (kernel 6) schedules, through the kernels and their plain versions;
- 14. times every kernel at the teddy K = 79 shape (CUDA events) beside its
+ 14. drives the main path a fourth time under the scanline schedule
+     (examples/run_ncc_torch.py --schedule scanline): the same model and
+     proposals, 4 sweeps with a decode every 2, every row phase's sends in
+     one launch of the column send kernel (4 x 375 launches a sweep); then
+     2 sweeps through the kernel and through its plain version, and on
+     baby2's K = 15 problem (13.) 8 sweeps of each (4 x 370 a sweep);
+ 15. the host (QPBO) fusion backend: the first 8 teddy NCC proposals fused
+     one at a time with fusion_backend="host" and, from the same start, on
+     the device (energy after each move, seconds a move; the energy never
+     rises, QPBO's bound lies below it); 4 host moves of the baby2 global
+     model with ``improve`` set (QPBO-I where nodes stay unlabelled); 3
+     sweeps of the serial TRW-S (solvers/trws_host.py) on baby2's K = 15
+     problem in raster order (lb <= E, the bound never falls; seconds a
+     sweep); printed as one ``host_path`` line;
+ 16. times every kernel at the teddy K = 79 shape (CUDA events) beside its
      plain version and its byte / operation bounds (the fused sweeps also at
      K = 15 and K = 202, beside their plain versions; the column send also
-     as the one launch of a banded and of a wavefront step), and prints the
-     ``{"kernels": [...]}`` line.
+     as the one launch of a banded and of a wavefront step and of the two
+     phases of a scanline row, and a whole scanline sweep at K = 79 and
+     K = 15), and prints the ``{"kernels": [...]}`` line.
 
 Every phase prints one JSON line; any failed check raises, so the exit code
 is non-zero and the last line is never printed.  The last line is
@@ -110,7 +125,9 @@ try:
         _build, banded_kernel, minplus, phase_kernel, wavefront_kernel)
     from stereo_tpu_torch.proposals import segmentation
     from stereo_tpu_torch.proposals import segpln as segpln_mod
-    from stereo_tpu_torch.solvers import banded, trws, wavefront
+    from stereo_tpu_torch.models import base as base_model
+    from stereo_tpu_torch.solvers import (banded, qpbo_host, scanline,
+                                          trws, trws_host, wavefront)
     from stereo_tpu_torch.utils import io
     from stereo_tpu_torch.utils.metrics import EnergyTrace
 except ModuleNotFoundError as exc:
@@ -218,6 +235,14 @@ GLOBAL_PAIR, GLOBAL_SIZE = "teddy", (375, 450)
 SIM_PAIR, SIM_SIZE, SIM_K = "baby2", (370, 413), 15
 SIM_SWEEPS, SIM_CHECK_EVERY, SIM_MAX_RELGAP = 64, 16, 1e-5
 SIM_PLAIN_SWEEPS, SIM_OTHER_SWEEPS = 2, 8
+# the scanline schedule on the main path's problem (teddy, K = 79): 4 sweeps
+# with a decode every 2, through kernel 4 (4 launches a row: 4 H a sweep);
+# then 2 sweeps from the same restart through the plain version
+SCAN_SWEEPS, SCAN_CHECK_EVERY, SCAN_PLAIN_SWEEPS = 4, 2, 2
+# the host (QPBO) fusion backend: moves of the first teddy NCC proposals on
+# both backends from one start; moves of the baby2 global model (improve
+# set); sweeps of the serial TRW-S on baby2's K = 15 problem, raster order
+HOST_NCC_MOVES, HOST_GLOBAL_MOVES, HOST_TRWS_SWEEPS = 8, 4, 3
 
 
 def check(ok, what: str):
@@ -921,6 +946,188 @@ def phase_wavefront_path(dm, proposals, checkerboard: dict,
     return counts
 
 
+# ------------------------------------------ 15. the scanline schedule
+def phase_scanline_path(dm, proposals) -> dict:
+    """Simultaneous fusion under the scanline schedule on the main path's
+    problem: SCAN_SWEEPS sweeps, a decode every SCAN_CHECK_EVERY, every row
+    phase's sends in one launch of the column send kernel (4 H a sweep);
+    then SCAN_PLAIN_SWEEPS sweeps from the same restart through the kernel
+    and through the plain version: labels and energy equal, bounds within
+    1e-5.  Returns the launch counts of the first run."""
+    H, W = dm.sz
+    dm.restart()
+    dm.schedule = "scanline"
+    dm.use_kernel, dm.maxiter = True, SCAN_SWEEPS
+    dm.check_every = dm.solver_chunk_scanline = SCAN_CHECK_EVERY
+    trace = EnergyTrace()
+    reset_counts()
+    t0 = time.perf_counter()
+    e, lb, iters = dm.simultaneous_fusion(proposals, trace=trace)
+    torch.cuda.synchronize()
+    t_sim = time.perf_counter() - t0
+    counts = read_counts()
+
+    assert_on_card(dm)
+    check(tuple(dm.assignment.shape) == (4, H, W)
+          and bool(torch.isfinite(dm.assignment).all()),
+          "assignment not a finite [4, H, W]")
+    check(np.isfinite([e, lb]).all() and lb <= e, f"lb {lb} > E {e}")
+    lbs = [s["lower_bound"] for s in trace.samples]
+    check(all(b >= a - 1e-5 * abs(lbs[-1]) for a, b in zip(lbs, lbs[1:])),
+          f"lower bound decreased between chunks: {lbs}")
+    check(all(s["lower_bound"] <= s["energy"] for s in trace.samples),
+          "lb > E at a check")
+    check(iters == SCAN_SWEEPS
+          and counts["minplus_send"] == 4 * H * SCAN_SWEEPS,
+          f"scanline: {counts['minplus_send']} launches of minplus_send in "
+          f"{iters} sweeps, expected 4 x {H} a sweep")
+    e_stored = dm.energy()
+    dm.assignment = dm.assignment
+    check(abs(dm.energy() - e_stored) <= 1e-4 * abs(e_stored),
+          "energy of the decoded assignment disagrees")
+    say("scanline_path", size=[H, W], K=len(proposals) + 1,
+        simultaneous_energy=e, lower_bound=lb, sweeps=iters,
+        check_every=SCAN_CHECK_EVERY, simultaneous_seconds=t_sim,
+        lb_trace=lbs, energy_trace=trace.energies, launches=counts)
+
+    out = {}
+    dm.maxiter = dm.check_every = SCAN_PLAIN_SWEEPS
+    dm.solver_chunk_scanline = SCAN_PLAIN_SWEEPS
+    for use_kernel in (True, False):
+        dm.restart()
+        dm.use_kernel = use_kernel
+        t0 = time.perf_counter()
+        e2, lb2, it2 = dm.simultaneous_fusion(proposals)
+        torch.cuda.synchronize()
+        out[use_kernel] = (e2, lb2, it2, dm.assignment.clone(),
+                           time.perf_counter() - t0)
+    dm.use_kernel, dm.check_every = True, CHECK_EVERY
+    (ek, lbk, itk, ak, tk), (ep, lbp, _, ap, tp) = out[True], out[False]
+    check(itk == SCAN_PLAIN_SWEEPS and torch.equal(ak, ap) and ek == ep
+          and abs(lbk - lbp) <= 1e-5 * abs(lbp),
+          f"scanline kernel vs plain version after {SCAN_PLAIN_SWEEPS} "
+          f"sweeps: E {ek} vs {ep}, lb {lbk} vs {lbp}, labels equal "
+          f"{torch.equal(ak, ap)}")
+    say("scanline_path_vs_plain", sweeps=SCAN_PLAIN_SWEEPS, energy=ek,
+        lower_bound=lbk, plain_lower_bound=lbp, labels_equal=True,
+        kernel_seconds=tk, plain_seconds=tp)
+    return counts
+
+
+# ---------------------------------------- 16. the host fusion backend
+class QPBOCalls:
+    """Within the block, records each host QPBO solve's unlabelled count
+    and each QPBO-I call (the model reaches both through qpbo_host)."""
+
+    def __enter__(self):
+        self.unlabelled, self.improve = [], 0
+        self._solve, self._improve = qpbo_host.solve, qpbo_host.improve
+
+        def solve(*a, **kw):
+            out = self._solve(*a, **kw)
+            self.unlabelled.append(out[3])
+            return out
+
+        def improve(*a, **kw):
+            self.improve += 1
+            return self._improve(*a, **kw)
+
+        qpbo_host.solve, qpbo_host.improve = solve, improve
+        return self
+
+    def __exit__(self, *exc):
+        qpbo_host.solve, qpbo_host.improve = self._solve, self._improve
+
+
+def host_moves(dm, proposals, backend: str) -> dict:
+    """One binary fusion per proposal on ``backend``: the energy after each
+    move (float32 sums of ~1e5 terms on the card, so a move may raise it
+    by their rounding), the returned bounds, the seconds of each move."""
+    dm.fusion_backend = backend
+    energies, bounds, secs, unlabelled = [dm.energy()], [], [], []
+    with QPBOCalls() as calls:
+        for p in proposals:
+            n0 = len(calls.unlabelled)
+            t0 = time.perf_counter()
+            e, lb = dm.binary_fusion(p)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            energies.append(e)
+            bounds.append(lb)
+            # the move's own solve comes first, QPBO-I's after it
+            unlabelled += calls.unlabelled[n0:n0 + 1]
+    dm.fusion_backend = "device"
+    check(np.isfinite(energies).all() and np.isfinite(bounds).all(),
+          f"{backend} moves: energy or bound not finite")
+    check(all(b <= a + 1e-6 * abs(a) for a, b in zip(energies,
+                                                      energies[1:])),
+          f"{backend} moves raised the energy: {energies}")
+    check(all(lb <= e + 1e-6 * abs(e) for lb, e in zip(bounds,
+                                                        energies[1:])),
+          f"{backend} moves: a bound above its energy: {bounds} {energies}")
+    check(len(unlabelled) == (len(proposals) if backend == "host" else 0),
+          f"{backend} moves made {len(calls.unlabelled)} QPBO solves")
+    return dict(energies=energies, lower_bounds=bounds, seconds=secs,
+                seconds_per_move=sum(secs) / len(secs),
+                unlabelled=unlabelled, improve_calls=calls.improve)
+
+
+def host_ncc_moves(dm, proposals) -> dict:
+    """The first HOST_NCC_MOVES teddy NCC proposals fused one at a time
+    with fusion_backend="host" and, from the same start, on the device."""
+    dm.restart()
+    start = dm.assignment.clone()
+    props = proposals[:HOST_NCC_MOVES]
+    host = host_moves(dm, props, "host")
+    dm.assignment = start
+    device = host_moves(dm, props, "device")
+    assert_on_card(dm)
+    return dict(moves=len(props), host=host, device=device)
+
+
+def host_global_moves(dm, props) -> dict:
+    """HOST_GLOBAL_MOVES host moves of the global model (improve set: QPBO-I
+    runs where QPBO leaves nodes unlabelled) from a restart."""
+    check(dm.improve, "the global model's improve is not set")
+    dm.restart()
+    out = host_moves(dm, props[:HOST_GLOBAL_MOVES], "host")
+    assert_on_card(dm)
+    return out
+
+
+def serial_trws_sweeps(dm, props) -> dict:
+    """trws_host.solve on the model's K-label simultaneous-fusion problem
+    (the proposals and the incumbent), raster order, HOST_TRWS_SWEEPS
+    sweeps: lb <= E and the bound never falls."""
+    stack = torch.stack(list(props) + [dm.assignment], 0)
+    t0 = time.perf_counter()
+    unary = torch.stack([dm.unary_map(p) for p in stack], 0)
+    D0, Q = base_model._positions(stack, dm.normalize)
+    edges = trws_host.grid_to_edges(unary, D0, Q, dm.smooth_weights)
+    t_edges = time.perf_counter() - t0
+    H, W = dm.sz
+    t0 = time.perf_counter()
+    # every sweep runs (max_relgap -inf: no gap test stops it early)
+    labels, e, lb, iters, tr = trws_host.solve(
+        dm.smoothness_kernel, *edges, dm.tol, trws_host.raster_order(H, W),
+        maxiter=HOST_TRWS_SWEEPS, max_relgap=-math.inf, trace=True)
+    t_solve = time.perf_counter() - t0
+    lbs, es = tr["lower_bound"].tolist(), tr["energy"].tolist()
+    check(iters == HOST_TRWS_SWEEPS and np.isfinite(es + lbs).all(),
+          f"serial TRW-S: {iters} sweeps, energies {es}, bounds {lbs}")
+    check(all(b <= a + 1e-9 * abs(a) for a, b in zip(es, lbs)),
+          f"serial TRW-S lb > E: {lbs} {es}")
+    check(all(b >= a - 1e-9 * abs(a) for a, b in zip(lbs, lbs[1:])),
+          f"serial TRW-S bound fell: {lbs}")
+    secs = tr["seconds"].tolist()
+    return dict(K=len(stack), nodes=H * W, edges=len(edges[1]),
+                sweeps=iters, energies=es, lower_bounds=lbs,
+                cumulative_seconds=secs,
+                seconds_per_sweep=(secs[-1] - secs[0]) / (iters - 1),
+                first_sweep_seconds=secs[0], solve_seconds=t_solve,
+                problem_seconds=t_edges)
+
+
 # --------------------------------------- 9. the per-step wavefront sweep
 def phase_wavefront_steps_path() -> dict:
     """solve_wavefront(sweep="steps") at teddy K = 79, one sweep: every send
@@ -1179,7 +1386,7 @@ def schedule_vs_plain(dm, props, schedule: str, sweeps: int,
     dm.schedule = schedule
     dm.maxiter = dm.check_every = sweeps
     dm.solver_chunk = dm.solver_chunk_banded = sweeps
-    dm.solver_chunk_wavefront = sweeps
+    dm.solver_chunk_wavefront = dm.solver_chunk_scanline = sweeps
     out = {}
     for use_kernel in (True, False):
         dm.restart()
@@ -1282,14 +1489,19 @@ def phase_simultaneous_path() -> dict:
         "phase_messages_compact", 2)
     runs["wavefront"] = schedule_vs_plain(
         dm, props, "wavefront", SIM_OTHER_SWEEPS, "sweep_wavefront", 1)
+    runs["scanline"] = schedule_vs_plain(
+        dm, props, "scanline", SIM_OTHER_SWEEPS, "minplus_send", 4 * H)
     say("simultaneous_path_vs_plain", K=len(props) + 1, **runs)
+    host = dict(global_moves=host_global_moves(dm, props),
+                trws_host=serial_trws_sweeps(dm, props))
     del dm, props
     torch.cuda.empty_cache()
     return {"sweep_banded": counts["sweep_banded"],
             "phase_messages_compact":
                 runs["checkerboard"]["launches"]["phase_messages_compact"],
             "sweep_wavefront":
-                runs["wavefront"]["launches"]["sweep_wavefront"]}
+                runs["wavefront"]["launches"]["sweep_wavefront"],
+            "minplus_send": runs["scanline"]["launches"]["minplus_send"]}, host
 
 
 # ------------------------------------------------------------ 5. timings
@@ -1547,7 +1759,57 @@ def time_phase(K: int, H: int, W: int, reps: int = 20,
     return rows
 
 
-def phase_timings(launches: dict, err: dict) -> list:
+def scanline_phase_problems(K: int, H: int, W: int, seed: int = 1):
+    """The sends of a scanline row's two forward phases (6 and 2 problems),
+    as solvers/scanline.py gives them to the column send: new belief rows
+    [K, W], and message, position and weight rows of padded [.., H+2, W]
+    buffers, read through their strides (synthetic data)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=DEV) * (hi - lo) + lo
+
+    r = H // 2
+    D0 = rand(K, H + 2, W, lo=-3, hi=3)
+    Q = rand(4, K, H + 2, W, lo=-3, hi=3)
+    M = rand(4, K, H + 2, W)
+    a = rand(4, H + 2, W, lo=0.5, hi=2.0)
+    gD, gDl, gDr = (rand(K, W, hi=5.0) for _ in range(3))
+    LT, RT, UP, DN = 0, 1, 2, 3
+    even = [(gD, M[LT, :, r], Q[LT, :, r], D0[:, r], a[LT, r]),
+            (gDl, M[LT, :, r], D0[:, r], Q[LT, :, r], a[LT, r]),
+            (gD, M[RT, :, r], Q[RT, :, r], D0[:, r], a[RT, r]),
+            (gDr, M[RT, :, r], D0[:, r], Q[RT, :, r], a[RT, r]),
+            (gD, M[DN, :, r], Q[DN, :, r], D0[:, r], a[DN, r]),
+            (gD, M[UP, :, r + 1], D0[:, r + 1], Q[UP, :, r + 1],
+             a[UP, r + 1])]
+    return even, even[4:]
+
+
+def time_scanline_sweep(K: int, H: int, W: int, reps: int) -> dict:
+    """ms of one scanline sweep (2 H rows, 4 H send launches) through the
+    kernel (median of ``reps`` after one) and through the plain version
+    (one), on a synthetic problem of the given shape; the sweeps follow one
+    another on one state.  The work's bounds are a banded sweep's (8 sends
+    per pixel)."""
+    prob = [torch.as_tensor(a, device=DEV)
+            for a in testing.synthetic_problem(K, H, W)]
+    out = {}
+    for use_kernel in (True, False):
+        rows = scanline._Rows(*prob, 1, 8.0, use_kernel)
+        M = [torch.zeros((K, H + 2, W), device=DEV) for _ in range(4)]
+        out[use_kernel] = time_ms(lambda: rows.sweep(M),
+                                  reps if use_kernel else 1,
+                                  warmup=1 if use_kernel else 0)
+        del rows, M
+    del prob
+    torch.cuda.empty_cache()
+    return dict(ms=out[True], plain_ms=out[False],
+                shape=dict(K=K, H=H, W=W, launches=4 * H),
+                **sweep_bounds(K, H * W))
+
+
+def phase_timings(launches: dict, err: dict, smi: str) -> list:
     K, H, W = FULL
     rows = time_phase(K, H, W)
     # the column send at the shape a banded step gives it: the direction pair
@@ -1576,6 +1838,22 @@ def phase_timings(launches: dict, err: dict) -> list:
                                                "minplus_send_kernel"),
                            bound_ms=step_bounds(problems, K)["bound_ms"])
         del problems
+    # the one launch of a scanline row phase at teddy's row (L = W = 450):
+    # the forward even phase's 6 problems and the odd phase's 2
+    for name, problems in zip(("scanline6", "scanline2"),
+                              scanline_phase_problems(K, H, W)):
+
+        def call():
+            minplus.minplus_send_many(problems, 8.0, 1)
+
+        step[name] = dict(ms=time_ms(call, 50, warmup=5),
+                          device_ms=device_ms(call, 50,
+                                              "minplus_send_kernel"),
+                          bound_ms=step_bounds(problems, K)["bound_ms"])
+    del problems
+    torch.cuda.empty_cache()
+    say("scanline_phase", card=smi, K=K, lanes=W, **step["scanline6"],
+        odd_phase=step["scanline2"])
     rows.append(dict(name="minplus_send", ms=ms, device_ms=on_device,
                      plain_ms=plain, shape=dict(B=B, K=K, L=L),
                      **send_bounds(B, K, L),
@@ -1585,6 +1863,10 @@ def phase_timings(launches: dict, err: dict) -> list:
                      step_bound_ms={k: v["bound_ms"]
                                     for k, v in step.items()}))
     del args
+    # one scanline sweep at the main path's shape and at baby2's K = 15
+    say("sweep_scanline_k79", card=smi, **time_scanline_sweep(K, H, W, 2))
+    say("sweep_scanline_k15", card=smi,
+        **time_scanline_sweep(SIM_K, *SIM_SIZE, 2))
     # the fused sweep at the main path's shape, and at K = 15 on 370 x 413
     # (the shape of the baby2 pair; synthetic data) for the record, and at
     # teddy's K = 202 (--grid-step 30)
@@ -1633,6 +1915,8 @@ def main():
     banded_counts, banded_run = phase_banded_path(dm, proposals, same_depth)
     wavefront_counts = phase_wavefront_path(dm, proposals, same_depth,
                                             banded_run)
+    scanline_counts = phase_scanline_path(dm, proposals)
+    host_ncc = host_ncc_moves(dm, proposals)
     del dm, proposals
     torch.cuda.empty_cache()
     reset_counts()
@@ -1643,7 +1927,8 @@ def main():
     banded_sweep_repeatable()
     wavefront_sweep_repeatable()
     phase_global_path()
-    baby2_counts = phase_simultaneous_path()
+    baby2_counts, host_baby2 = phase_simultaneous_path()
+    say("host_path", card=smi, teddy_ncc=host_ncc, **host_baby2)
     launches = {
         "phase_messages_compact": main_counts["phase_messages_compact"],
         "phase_messages": full_counts["phase_messages"],
@@ -1654,10 +1939,12 @@ def main():
         "minplus_pair": pair_counts["minplus_pair"],
         "sweep_wavefront": wavefront_counts["sweep_wavefront"]}
 
-    rows = phase_timings(launches, err)
+    rows = phase_timings(launches, err, smi)
     for r in rows:
         if r["name"] in baby2_counts:
             r["launches_baby2_k15"] = baby2_counts[r["name"]]
+        if r["name"] == "minplus_send":
+            r["launches_scanline"] = scanline_counts["minplus_send"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

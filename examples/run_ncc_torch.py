@@ -34,11 +34,11 @@ def main():
     ap.add_argument("--grid-step", type=int, default=50)
     ap.add_argument("--skip-simultaneous", action="store_true")
     ap.add_argument("--schedule", default="banded",
-                    choices=["banded", "checkerboard", "wavefront"],
-                    help="TRW-S schedule for the simultaneous phase: banded "
-                         "(blocked wavefront, as run_ncc.py's default), "
-                         "checkerboard or wavefront (exact raster order); "
-                         "run_ncc.py's scanline is not ported yet")
+                    choices=["banded", "checkerboard", "wavefront",
+                             "scanline"],
+                    help="TRW-S schedule for the simultaneous phase "
+                         "(banded|checkerboard|wavefront|scanline); banded "
+                         "(blocked wavefront) is run_ncc.py's default")
     ap.add_argument("--maxiter", type=int, default=1000)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "float64"],

@@ -29,8 +29,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--maxiter", type=int, default=3000)
     ap.add_argument("--schedule", default="banded",
-                    choices=["checkerboard", "wavefront", "banded"],
-                    help="run_simultaneous.py's scanline is not ported yet")
+                    choices=["checkerboard", "scanline", "wavefront",
+                             "banded"])
     ap.add_argument("--band", type=int, default=128,
                     help="block size for --schedule banded")
     ap.add_argument("--max-relgap", type=float, default=1e-5)

@@ -10,10 +10,14 @@ default; the CPU only on request).  The class sequences plain functions on
 tensors; loops over moves and sweeps are Python loops.
 
 Simultaneous fusion runs the checkerboard schedule (solvers/trws.py), the
-banded one (solvers/banded.py, blocks of ``band`` x ``band`` pixels) or the
-raster wavefront (solvers/wavefront.py), on the device fusion backend; the
-scanline schedule and the host (QPBO) backend are named in ROADMAP.md and
-raise NotImplementedError here.
+banded one (solvers/banded.py, blocks of ``band`` x ``band`` pixels), the
+raster wavefront (solvers/wavefront.py) or the scanline order
+(solvers/scanline.py).  Binary fusion runs on the device (the K = 2 TRW-S of
+solvers/binary.py, the default) or, with ``fusion_backend="host"``, through
+exact QPBO on the host (solvers/qpbo_host.py, the port's copy of the native
+solver): the caller chooses; nothing falls back from one to the other.
+Narrow message storage (``message_dtype``) is not ported and raises in
+solvers/trws.py.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 
 from stereo_tpu_torch import energy, geometry
 from stereo_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from stereo_tpu_torch.solvers import banded, binary, trws, wavefront
+from stereo_tpu_torch.solvers import (banded, binary, qpbo_host, scanline,
+                                      trws, wavefront)
 from stereo_tpu_torch.utils.profiling import PhaseTimings
 
 _SCHEDULES = ("checkerboard", "scanline", "wavefront", "banded")
@@ -32,11 +37,6 @@ _SCHEDULES = ("checkerboard", "scanline", "wavefront", "banded")
 def _check_schedule(schedule: str):
     if schedule not in _SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule == "scanline":
-        raise NotImplementedError(
-            f"schedule {schedule!r} is not ported yet (ROADMAP.md, 'Modules "
-            "to port'); this package runs schedule='checkerboard', 'banded' "
-            "and 'wavefront'")
 
 
 class DispMap:
@@ -71,13 +71,13 @@ class DispMap:
         self.schedule = schedule
         # block side of the banded schedule (clamped to the image)
         self.band = 128
+        # binary-fusion solver: 'device' (K = 2 TRW-S + per-component
+        # acceptance) or 'host' (exact QPBO roof duality through the native
+        # library, honouring ``improve``)
         if fusion_backend not in ("device", "host"):
             raise ValueError(f"unknown fusion backend {fusion_backend!r}")
-        if fusion_backend == "host":
-            raise NotImplementedError(
-                "fusion_backend='host' (exact QPBO on the host) is not "
-                "ported yet (ROADMAP.md, 'Modules to port')")
         self.fusion_backend = fusion_backend
+        self._edge_cache = None
         self.smooth_weights = energy.default_weights(
             H, W, dtype=self.dtype, device=self.device)
         self._assignment = None
@@ -129,6 +129,8 @@ class DispMap:
         proposal = self._tensor(proposal)
         if proposal.shape != self._assignment.shape:
             raise ValueError("Binary fusion: proposal is of wrong size")
+        if self.fusion_backend == "host":
+            return self._binary_fusion_host(proposal)
         with self.timings.phase("binary_fusion"):
             D0, Q = binary.fusion_problem(self._assignment, proposal,
                                           self.normalize)
@@ -142,6 +144,55 @@ class DispMap:
         self._assignment = fused
         self._stored_energy = e
         return self._stored_energy, lb
+
+    def _edge_lists(self):
+        """Directed edge lists (tails, heads, per-direction weights and
+        selections) of the host QPBO path, built once per weight tensor."""
+        w_t = self.smooth_weights
+        if self._edge_cache is None or self._edge_cache[0] is not w_t:
+            H, W = self.sz
+            w = w_t.detach().to("cpu", torch.float64).numpy()
+            nid = np.arange(H * W).reshape(H, W)
+            tails, heads, wts, sel = [], [], [], []
+            for d, (dy, dx) in enumerate(geometry.DIRS):
+                ys, xs = np.nonzero(w[d] > 0)
+                tails.append(nid[ys + dy, xs + dx])
+                heads.append(nid[ys, xs])
+                wts.append(w[d, ys, xs])
+                sel.append((d, ys, xs))
+            self._edge_cache = (w_t, (
+                np.concatenate(tails).astype(np.int32),
+                np.concatenate(heads).astype(np.int32), wts, sel))
+        return self._edge_cache[1]
+
+    def _binary_fusion_host(self, proposal) -> tuple[float, float]:
+        """Exact QPBO fusion on the host (the rd.m / rd_mex path): weak
+        persistency + keep-current on unlabelled nodes, QPBO-I when
+        unlabelled nodes remain and ``improve`` is set.  The state stays on
+        the model's device; the QPBO inputs go to the host as float64 numpy
+        and the take mask comes back."""
+        with self.timings.phase("binary_fusion"):
+            H, W = self.sz
+            cur = self._assignment
+            tables = energy.binary_fusion_pairwise_tables(
+                cur, proposal, self.smoothness_kernel, self.tol,
+                self.normalize).detach().to("cpu", torch.float64).numpy()
+            tails, heads, wts, sel = self._edge_lists()
+            E = [np.concatenate([wts[i] * tables[d, t, ys, xs]
+                                 for i, (d, ys, xs) in enumerate(sel)])
+                 for t in range(4)]
+            U0, U1 = (self.unary_map(p).detach().to("cpu", torch.float64)
+                      .numpy().ravel() for p in (cur, proposal))
+            labels, _, lb, n_unlab = qpbo_host.solve(
+                U0, U1, tails, heads, *E)
+            y = np.where(labels >= 0, labels, 0)
+            if n_unlab > 0 and self.improve:
+                y, _ = qpbo_host.improve(labels, U0, U1, tails, heads, *E)
+            take = torch.as_tensor((y == 1).reshape(H, W),
+                                   device=self.device)
+        self._assignment = energy.fuse_labelling(cur, proposal, take)
+        self._update_energy()
+        return self._stored_energy, float(lb)
 
     def binary_fusion_sweep(self, proposals, chunk: int = 64) -> list[float]:
         """Fuse a whole proposal stream, ``chunk`` moves at a time.
@@ -189,6 +240,24 @@ class DispMap:
         visited = np.zeros(n, dtype=bool)
         energies = [self.energy()]
 
+        if self.fusion_backend == "host":
+            # the exact QPBO path (honours ``improve``): one host solve a move
+            for it in range(min(self.maxiter, len(ids))):
+                pid = int(ids[it])
+                if visited[pid]:
+                    continue
+                self.binary_fusion(proposals[pid])
+                energies.append(self.energy())
+                if energies[-1] != energies[-2]:
+                    visited[:] = False
+                else:
+                    visited[pid] = True
+                if verbose:
+                    print(f"fuse #{it} proposal {pid}: E = {energies[-1]:.6g}")
+                if visited.all():
+                    break
+            return len(energies)
+
         unary_p = self.unary_partial()
         stack_all = torch.stack([self._tensor(p) for p in proposals], 0)
         chunk = min(chunk, max(8, n))
@@ -234,6 +303,7 @@ class DispMap:
     # TRW-S runs in chunks of this many sweeps (per schedule); messages
     # warm-start across chunks, so the trajectory is identical to one long run
     solver_chunk: int = 300
+    solver_chunk_scanline: int = 50
     solver_chunk_wavefront: int = 150
     solver_chunk_banded: int = 400
 
@@ -259,6 +329,7 @@ class DispMap:
         best_e = float("inf")
         best_labels = None
         chunk_size = {
+            "scanline": self.solver_chunk_scanline,
             "wavefront": self.solver_chunk_wavefront,
             "banded": self.solver_chunk_banded,
         }.get(self.schedule, self.solver_chunk)
@@ -372,7 +443,8 @@ def _simultaneous_fusion_step(prop_stack, unary, weights, kernel, tol,
                               messages=None, use_kernel=True,
                               schedule="checkerboard", band=128):
     """One chunk of TRW-S on the K-label fusion problem, under the
-    checkerboard, the banded or the raster-wavefront schedule."""
+    checkerboard, the banded, the raster-wavefront or the scanline
+    schedule."""
     D0, Q = _positions(prop_stack, normalize)  # [K, H, W], [4, K, H, W]
     extra = {}
     if schedule == "banded":
@@ -381,6 +453,8 @@ def _simultaneous_fusion_step(prop_stack, unary, weights, kernel, tol,
         extra = dict(Bh=max(2, min(band, H)), Bw=max(2, min(band, W)))
     elif schedule == "wavefront":
         _solve = wavefront.solve_wavefront
+    elif schedule == "scanline":
+        _solve = scanline.solve_scanline
     else:
         _solve = trws.solve
     res = _solve(

@@ -20,6 +20,7 @@ from stereo_tpu_torch.ops import minplus as t_mp
 from stereo_tpu_torch.ops import phase_kernel as t_pk
 from stereo_tpu_torch.ops import wavefront_kernel as t_wfk
 from stereo_tpu_torch.solvers import banded as t_banded
+from stereo_tpu_torch.solvers import scanline as t_scan
 from stereo_tpu_torch.solvers import trws as t_trws
 from stereo_tpu_torch.solvers import wavefront as t_wf
 
@@ -336,6 +337,41 @@ def test_solve_wavefront_on_card_kernel_equals_plain(cuda, sweep):
     assert torch.equal(got.labels, ref.labels)
     assert torch.equal(got.messages, ref.messages)
     assert float(got.lower_bound) <= float(got.energy)
+
+
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("K,H,W", [(8, 37, 53), (15, 9, 70), (79, 6, 40)])
+def test_solve_scanline_on_card_kernel_equals_plain(cuda, K, H, W, kernel):
+    """The scanline sweeps through kernel 4 (four launches a row) against
+    the plain version of the same calls: messages, labels and energy bit
+    for bit, the bound to float32 rounding; from zero and warm messages."""
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.synthetic_problem(K, H, W, seed=K)]
+    kw = dict(kernel=kernel, tol=0.9, maxiter=2, max_relgap=0.0)
+    msgs = None
+    for _ in range(2):
+        before = t_mp.minplus_send.launches
+        got = t_scan.solve_scanline(*prob, **kw, messages=msgs)
+        torch.cuda.synchronize()
+        assert t_mp.minplus_send.launches == before + 4 * H * 2
+        ref = t_scan.solve_scanline(*prob, **kw, messages=msgs,
+                                    use_kernel=False)
+        assert torch.equal(got.messages, ref.messages)
+        assert torch.equal(got.labels, ref.labels)
+        assert float(got.energy) == float(ref.energy)
+        np.testing.assert_allclose(float(got.lower_bound),
+                                   float(ref.lower_bound), rtol=1e-5)
+        assert float(got.lower_bound) <= float(got.energy)
+        msgs = got.messages
+
+
+def test_scanline_raises_on_card_for_float64(cuda):
+    """No fallback: a float64 problem on the card reaches the send kernel's
+    argument check and raises."""
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.trws_problem(0, 3, 4, 5)]
+    with pytest.raises(ValueError, match="float32"):
+        t_scan.solve_scanline(*prob, kernel=1, tol=1.0, maxiter=1)
 
 
 def test_wavefront_and_pair_wrappers_raise_on_card_for_bad_input(cuda):

@@ -55,6 +55,10 @@ def test_files_found():
                  "stereo_tpu_torch/proposals/segpln.py",
                  "stereo_tpu_torch/ops/photo.py",
                  "stereo_tpu_torch/models/global_stereo.py",
+                 "stereo_tpu_torch/solvers/scanline.py",
+                 "stereo_tpu_torch/solvers/trws_tables.py",
+                 "stereo_tpu_torch/solvers/qpbo_host.py",
+                 "stereo_tpu_torch/solvers/trws_host.py",
                  "examples/run_global_torch.py",
                  "examples/run_simultaneous_torch.py", "chip_smoke.py"):
         assert must in names
@@ -114,6 +118,11 @@ def test_default_device_raises_without_card():
         convert.wavefront_groups_from_numpy(state[:2])
     with pytest.raises(RuntimeError, match="cuda"):
         wavefront.raster_gamma(4, 5)
+    from stereo_tpu_torch.solvers import scanline, trws_tables
+    with pytest.raises(RuntimeError, match="cuda"):
+        scanline.scanline_gamma(4, 5)
+    with pytest.raises(RuntimeError, match="cuda"):
+        trws_tables.potts_table(3, 1.0)
     with pytest.raises(RuntimeError, match="cuda"):
         DispMapNCC([im0, im1], np.arange(4), kernel=1, unary_weight=40.0,
                    tol=8.0, schedule="wavefront")
@@ -149,28 +158,39 @@ def test_examples_raise_without_card(name, monkeypatch):
 
 
 def test_unported_options_raise():
-    from stereo_tpu_torch import testing
+    """Of the JAX package's options only narrow message storage
+    (``message_dtype``) is still refused; unknown names raise.  The
+    scanline schedule and the host (QPBO) fusion backend construct and
+    solve on the CPU."""
+    from stereo_tpu_torch import geometry, testing
     from stereo_tpu_torch.models.ncc import DispMapNCC
     from stereo_tpu_torch.solvers import trws
 
     im0, im1 = testing.textured_pair(0, 12, 16)
     kw = dict(kernel=1, unary_weight=40.0, tol=8.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DispMapNCC([im0, im1], np.arange(4), schedule="scanline", **kw)
     with pytest.raises(ValueError):
         DispMapNCC([im0, im1], np.arange(4), schedule="zigzag", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DispMapNCC([im0, im1], np.arange(4), fusion_backend="host", **kw)
+    with pytest.raises(ValueError):
+        DispMapNCC([im0, im1], np.arange(4), fusion_backend="quantum", **kw)
     dm = DispMapNCC([im0, im1], np.arange(4), **kw)
-    dm.schedule = "scanline"
-    with pytest.raises(NotImplementedError):
+    dm.schedule = "zigzag"
+    with pytest.raises(ValueError):
         dm.simultaneous_fusion([dm.assignment])
-    # the wavefront schedule constructs and solves
-    dm = DispMapNCC([im0, im1], np.arange(4), schedule="wavefront",
-                    maxiter=2, **kw)
-    assert dm.schedule == "wavefront" and dm.solver_chunk_wavefront == 150
-    e, lb, iters = dm.simultaneous_fusion([dm.assignment])
-    assert iters > 0 and np.isfinite([e, lb]).all() and lb <= e + 1e-9
+    # the wavefront and scanline schedules construct and solve
+    for schedule, chunk in (("wavefront", 150), ("scanline", 50)):
+        dm = DispMapNCC([im0, im1], np.arange(4), schedule=schedule,
+                        maxiter=2, **kw)
+        assert dm.schedule == schedule
+        assert getattr(dm, f"solver_chunk_{schedule}") == chunk
+        e, lb, iters = dm.simultaneous_fusion([dm.assignment])
+        assert iters > 0 and np.isfinite([e, lb]).all() and lb <= e + 1e-9
+    # the host fusion backend constructs and fuses, never raising the energy
+    dm = DispMapNCC([im0, im1], np.arange(4), fusion_backend="host", **kw)
+    assert dm.fusion_backend == "host"
+    e0 = dm.energy()
+    e, lb = dm.binary_fusion(geometry.fronto_parallel(12, 16, 2.0,
+                                                      dm.dtype, "cpu"))
+    assert np.isfinite([e, lb]).all() and lb <= e + 1e-9 and e <= e0
     t = [torch.as_tensor(a) for a in testing.trws_problem(0, 3, 4, 5)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trws.solve(*t, kernel=1, tol=1.0, message_dtype=torch.bfloat16)

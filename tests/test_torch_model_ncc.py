@@ -133,15 +133,15 @@ def test_simultaneous_fusion_banded_schedule(models):
     finally:
         jm.schedule = tm.schedule = "checkerboard"
         tm.solver_chunk_banded = 400
-    # the constructor takes the schedule too; the unported ones still raise
+    # the constructor takes the schedule too; every schedule is ported
     im0, im1 = testing.textured_pair(1, H, W, shift=3)
     dm = TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="banded",
                      device="cpu")
     assert dm.schedule == "banded" and dm.band == 128
     assert dm.solver_chunk_banded == 400
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="scanline",
-                    device="cpu")
+    dm = TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="scanline",
+                     device="cpu")
+    assert dm.schedule == "scanline" and dm.solver_chunk_scanline == 50
     dm = TDispMapNCC([im0, im1], DISPARITIES, **KW, schedule="wavefront",
                      device="cpu")
     assert dm.schedule == "wavefront" and dm.solver_chunk_wavefront == 150
