@@ -87,7 +87,24 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      sweeps of the serial TRW-S (solvers/trws_host.py) on baby2's K = 15
      problem in raster order (lb <= E, the bound never falls; seconds a
      sweep); printed as one ``host_path`` line;
- 16. times every kernel at the teddy K = 79 shape (CUDA events) beside its
+ 16. (run before 15's baby2 part, on the main path's model) utils/checkpoint
+     on the main path's K = 79 problem through the compact phase kernel: 8
+     sweeps straight against 4, an async checkpoint of the messages, a load
+     and 4 more from the loaded messages; labels, energy, bound and
+     messages bit for bit, 32 launches counted (``checkpoint_path``);
+ 17. examples/run_second_order_torch.py's default configuration at its size
+     (teddy crop 120 x 180, max-disp 14, connect 4, visibility on): 8
+     fusions with visibility and 4 without (the host QPBO with the cubic
+     reduction; info["error"] checked, the energy never rises, each move
+     taken only below its keep energy), ojw_stereo's SameUni -> SegPln ->
+     Smooth* at 3 fusions a stage, and the first 4 fusions again on the
+     CPU through the port (printed, not checked) (``second_order_path``);
+ 18. examples/run_render_torch.py's default configuration at its size
+     (teddy crop 120 x 160, 9 levels): the edge-modes renderer (lb <= E,
+     image finite, depth finite where the pixel has a colour mode) and the
+     occlusion renderer (energies finite) (``render_path``); no kernel of
+     the package lies on 17 and 18;
+ 19. times every kernel at the teddy K = 79 shape (CUDA events) beside its
      plain version and its byte / operation bounds (the fused sweeps also at
      K = 15 and K = 202, beside their plain versions; the column send also
      as the one launch of a banded and of a wavefront step and of the two
@@ -101,12 +118,14 @@ is non-zero and the last line is never printed.  The last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -117,19 +136,25 @@ if not torch.cuda.is_available():
                      "this script runs on an NVIDIA GPU only")
 
 try:
-    from stereo_tpu_torch import testing
+    from stereo_tpu_torch import convert, testing
     from stereo_tpu_torch.config import CVPR08Options
     from stereo_tpu_torch.models.global_stereo import DispMapGlobalStereo
     from stereo_tpu_torch.models.ncc import DispMapNCC, grid_proposals
+    from stereo_tpu_torch.models.second_order import (SecondOrderStereo,
+                                                      ojw_stereo)
     from stereo_tpu_torch.ops import (
         _build, banded_kernel, minplus, phase_kernel, wavefront_kernel)
     from stereo_tpu_torch.proposals import segmentation
     from stereo_tpu_torch.proposals import segpln as segpln_mod
+    from stereo_tpu_torch.render import OcclRenderOptions, render_occl
+    from stereo_tpu_torch.render.edgemodes import render_edgemodes
     from stereo_tpu_torch.models import base as base_model
     from stereo_tpu_torch.solvers import (banded, qpbo_host, scanline,
                                           trws, trws_host, wavefront)
     from stereo_tpu_torch.utils import io
+    from stereo_tpu_torch.utils.checkpoint import Checkpointer
     from stereo_tpu_torch.utils.metrics import EnergyTrace
+    from examples.run_render_torch import middle_view_P
 except ModuleNotFoundError as exc:
     raise SystemExit(f"chip_smoke.py: {exc}; run it from the root of a "
                      "checkout of the repository, beside stereo_tpu_torch/")
@@ -243,6 +268,20 @@ SCAN_SWEEPS, SCAN_CHECK_EVERY, SCAN_PLAIN_SWEEPS = 4, 2, 2
 # both backends from one start; moves of the baby2 global model (improve
 # set); sweeps of the serial TRW-S on baby2's K = 15 problem, raster order
 HOST_NCC_MOVES, HOST_GLOBAL_MOVES, HOST_TRWS_SWEEPS = 8, 4, 3
+# run_second_order.py's default: teddy crop [120:240, 100:280], --max-disp
+# 14, connect 4, kernel 1, visibility on, its schedule; SO_FUSIONS fusions
+# with visibility (average_over = SO_FUSIONS, so a run of moves that do not
+# lower the energy does not stop the loop early), SO_NOVIS_FUSIONS without,
+# ojw_stereo's SameUni -> SegPln -> Smooth* at SO_STAGE_FUSIONS a stage,
+# and the first SO_CPU_FUSIONS again on the CPU through the port
+SO_PAIR, SO_CROP, SO_MAX_DISP = "teddy", (120, 240, 100, 280), 14
+SO_SCHEDULE = ("sweep_ftb", "smooth", "fronto", "random")
+SO_FUSIONS, SO_NOVIS_FUSIONS, SO_STAGE_FUSIONS, SO_CPU_FUSIONS = 8, 4, 3, 4
+# run_render.py's default: teddy crop [120:240, 120:280], 9 levels
+RENDER_PAIR, RENDER_CROP, RENDER_LEVELS = "teddy", (120, 240, 120, 280), 9
+# utils/checkpoint on the main path's K = 79 checkerboard problem (kernel
+# 1): CKPT_SWEEPS straight against half, a checkpoint, a load and half
+CKPT_SWEEPS, CKPT_CHECK_EVERY = 8, 4
 
 
 def check(ok, what: str):
@@ -1504,6 +1543,279 @@ def phase_simultaneous_path() -> dict:
             "minplus_send": runs["scanline"]["launches"]["minplus_send"]}, host
 
 
+# ----------------------- 17. utils/checkpoint: resume through kernel 1
+def phase_checkpoint_path(dm, proposals) -> dict:
+    """The main path's K = 79 problem on the checkerboard schedule (the
+    compact phase kernel): CKPT_SWEEPS sweeps straight, against half of
+    them, an async checkpoint of the messages, a load and the other half
+    from the loaded messages (max_relgap 0).  Labels, energy, bound and
+    messages must be equal bit for bit.  Returns the launch counts."""
+    stack = torch.stack([dm._tensor(p) for p in proposals]
+                        + [dm.assignment], 0)
+    unary = torch.stack([dm.unary_map(p) for p in stack], 0)
+    D0, Q = base_model._positions(stack, dm.normalize)
+    args = (unary, D0, Q, dm.smooth_weights)
+    kw = dict(kernel=dm.smoothness_kernel, tol=dm.tol, max_relgap=0.0,
+              check_every=CKPT_CHECK_EVERY)
+    half = CKPT_SWEEPS // 2
+    reset_counts()
+    t0 = time.perf_counter()
+    full = trws.solve(*args, maxiter=CKPT_SWEEPS, **kw)
+    first = trws.solve(*args, maxiter=half, **kw)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d, name="trws", async_save=True)
+        t0 = time.perf_counter()
+        ck.save(half, {"messages": first.messages, "labels": first.labels,
+                       "energy": first.energy,
+                       "lower_bound": first.lower_bound})
+        ck.wait()
+        step, flat = ck.load()
+        t_ckpt = time.perf_counter() - t0
+        nbytes = sum(a.nbytes for a in flat.values())
+    resumed = trws.solve(*args, maxiter=half, **kw,
+                         messages=torch.as_tensor(flat["['messages']"],
+                                                  device=DEV))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(step == half and torch.equal(
+        torch.as_tensor(flat["['labels']"], device=DEV), first.labels),
+          "the checkpoint did not read back what was saved")
+    check(resumed.messages.is_cuda and torch.equal(resumed.labels,
+                                                   full.labels)
+          and float(resumed.energy) == float(full.energy)
+          and float(resumed.lower_bound) == float(full.lower_bound)
+          and torch.equal(resumed.messages, full.messages),
+          f"resume from the checkpoint differs from the straight run: E "
+          f"{float(resumed.energy)} vs {float(full.energy)}, lb "
+          f"{float(resumed.lower_bound)} vs {float(full.lower_bound)}")
+    expect = 2 * (CKPT_SWEEPS + 2 * half)
+    check(counts["phase_messages_compact"] == expect,
+          f"{counts['phase_messages_compact']} launches of the compact phase "
+          f"kernel, expected {expect}")
+    say("checkpoint_path", K=len(stack), size=list(dm.sz),
+        sweeps=CKPT_SWEEPS, resumed_at=half, energy=float(full.energy),
+        lower_bound=float(full.lower_bound), bit_for_bit=True,
+        checkpoint_bytes=nbytes, save_load_seconds=t_ckpt,
+        solve_seconds=t_solve, launches=counts)
+    return counts
+
+
+# ------------------- 18. the second-order chain (run_second_order.py)
+def second_order_inputs():
+    pair = io.load_pair(SO_PAIR)
+    y0, y1, x0, x1 = SO_CROP
+    images = [im[y0:y1, x0:x1] for im in pair.images]
+    P = pair.P.copy()
+    P[1, 0, 3] = -0.25  # as run_second_order.py sets it
+    return images, P
+
+
+def check_trace(name: str, energies, moves) -> list:
+    """Finite energies; returns the moves where the trace rose by more
+    than 1e-6 relative (the fusion guard holds each move against its own
+    keep energy, checked here too: a move is taken only when its energy is
+    no higher)."""
+    check(np.isfinite(energies).all(), f"{name}: energy not finite")
+    for fi in moves:
+        check(fi["updated"] == 0 or fi["e_move"] <= fi["e_keep"],
+              f"{name}: a move was taken above its keep energy: {fi}")
+    return [i for i, (a, b) in enumerate(zip(energies, energies[1:]))
+            if b > a + 1e-6 * abs(a)]
+
+
+def recorder(model):
+    """A save_progress sink keeping each fusion's stats and field (the
+    model calls it after every fusion; what it raises is swallowed, so it
+    raises nothing)."""
+    moves, fields = [], []
+
+    def sink(it, disp):
+        moves.append({k: v for k, v in model.last_fuse_info.items()})
+        fields.append(disp)
+    return moves, fields, sink
+
+
+def optimize_checked(name: str, model, iters: int) -> dict:
+    reset_counts()
+    moves, fields, sink = recorder(model)
+    info = {}
+    t0 = time.perf_counter()
+    energies = model.optimize(schedule=SO_SCHEDULE, max_iters=iters,
+                              average_over=iters, info=info,
+                              save_progress=sink)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    if info["error"] is not None:
+        raise RuntimeError(f"{name}: a fusion failed") from info["error"]
+    check(len(energies) == iters + 1 and len(moves) == iters,
+          f"{name}: {len(energies) - 1} fusions, expected {iters}")
+    rises = check_trace(name, energies, moves)
+    check(not rises, f"{name}: the energy rose at moves {rises}: "
+          f"{energies}")
+    assert_on_card(model)
+    check(model.disp.is_cuda and tuple(model.disp.shape) == model.sz
+          and bool(torch.isfinite(model.disp).all()),
+          f"{name}: the field is not a finite [H, W] tensor on the card")
+    return dict(fusions=iters, seconds=secs, seconds_a_fusion=secs / iters,
+                t_terms=info["timings"][:, 0].tolist(),
+                t_solve=info["timings"][:, 1].tolist(),
+                energy_trace=energies,
+                updated=info["numbers"][:, 0].tolist(),
+                unlabelled=info["numbers"][:, 1].tolist(),
+                regions=info["numbers"][:, 2].tolist(), launches=counts,
+                fields=fields)
+
+
+def phase_second_order_path() -> dict:
+    """examples/run_second_order_torch.py's default configuration at its
+    size: SO_FUSIONS fusions with visibility, SO_NOVIS_FUSIONS without,
+    then ojw_stereo's (1, 2, 3) stages (SegPln through
+    segpln_scalar_proposals), and the first SO_CPU_FUSIONS fusions again
+    on the CPU through the port (printed, not checked).  No kernel of the
+    package is on this path: the QPBO runs on the host."""
+    images, P = second_order_inputs()
+    opts = CVPR08Options(connect=4, smoothness_kernel=1, visibility=True,
+                         max_iters=SO_FUSIONS, average_over=SO_FUSIONS,
+                         converge=0.0)
+    t0 = time.perf_counter()
+    dm = SecondOrderStereo(images, P, (0, SO_MAX_DISP), 1, opts, seed=0,
+                           device=DEV)
+    e_init = dm.energy()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    H, W = dm.sz
+    check((H, W) == (SO_CROP[1] - SO_CROP[0], SO_CROP[3] - SO_CROP[2]),
+          f"second-order crop is {(H, W)}")
+    start = dm._start.copy()
+    vis = optimize_checked("second_order visibility", dm, SO_FUSIONS)
+    card_fields = vis.pop("fields")
+
+    dm.options = dataclasses.replace(opts, visibility=False)
+    dm.restart()
+    novis = optimize_checked("second_order no visibility", dm,
+                             SO_NOVIS_FUSIONS)
+    novis.pop("fields")
+
+    # ojw_stereo: SameUni -> SegPln -> Smooth*, each a fresh optimize
+    stage_opts = dataclasses.replace(
+        opts, proposal_method=(1, 2, 3), max_iters=SO_STAGE_FUSIONS,
+        average_over=SO_STAGE_FUSIONS)
+    reset_counts()
+    t0 = time.perf_counter()
+    model, info = ojw_stereo(images, P, (0, SO_MAX_DISP), 1, stage_opts,
+                             seed=0, device=DEV)
+    torch.cuda.synchronize()
+    t_ojw = time.perf_counter() - t0
+    stages = {}
+    for name, st in info["stages"].items():
+        if st["error"] is not None:
+            raise RuntimeError(f"ojw_stereo stage {name}: a fusion failed"
+                               ) from st["error"]
+        es = st["energy"]
+        check(len(es) == SO_STAGE_FUSIONS + 1,
+              f"ojw_stereo stage {name}: {len(es) - 1} fusions")
+        rises = check_trace(f"ojw_stereo {name}", es, [])
+        check(not rises, f"ojw_stereo stage {name}: the energy rose at "
+              f"moves {rises}: {es}")
+        stages[name] = dict(energy_trace=es,
+                            t_terms=st["timings"][:, 0].tolist(),
+                            t_solve=st["timings"][:, 1].tolist(),
+                            unlabelled=st["numbers"][:, 1].tolist())
+    check(list(stages) == ["sameuni", "segpln", "smooth_star"]
+          and info["segpln_gen"] == len(segpln_mod.MULTS),
+          f"ojw_stereo stages {list(stages)}, "
+          f"{info.get('segpln_gen')} SegPln proposals")
+    assert_on_card(model)
+    ojw_counts = read_counts()
+
+    # the first fusions again on the CPU, from the card model's state
+    cpu = convert.second_order_from_numpy(
+        images, P, (0, SO_MAX_DISP), 1, opts, segments=dm.seg, start=start,
+        device="cpu")
+    t0 = time.perf_counter()
+    cpu_info = {}
+    cpu_es = cpu.optimize(schedule=SO_SCHEDULE, max_iters=SO_CPU_FUSIONS,
+                          average_over=SO_CPU_FUSIONS, info=cpu_info)
+    t_cpu = time.perf_counter() - t0
+    if cpu_info["error"] is not None:
+        raise RuntimeError("second_order CPU rerun: a fusion failed"
+                           ) from cpu_info["error"]
+    card_es = vis["energy_trace"][:SO_CPU_FUSIONS + 1]
+    rel = [abs(a - b) / abs(b) for a, b in zip(cpu_es, card_es)]
+    same = float(np.mean(cpu.disp.numpy() == card_fields[SO_CPU_FUSIONS - 1]))
+    say("second_order_path", pair=SO_PAIR, crop=list(SO_CROP), size=[H, W],
+        max_disp=SO_MAX_DISP, connect=4, kernel=1, schedule=SO_SCHEDULE,
+        setup_seconds=t_setup, initial_energy=e_init, visibility=vis,
+        no_visibility=novis, ojw_stereo=dict(
+            proposal_method=[1, 2, 3], fusions_a_stage=SO_STAGE_FUSIONS,
+            seconds=t_ojw, segpln_proposals=info["segpln_gen"],
+            stages=stages, launches=ojw_counts),
+        cpu_rerun=dict(fusions=SO_CPU_FUSIONS, seconds=t_cpu,
+                       energy_trace=cpu_es, relative_difference=rel,
+                       equal_pixel_share=same))
+    del dm, model
+    torch.cuda.empty_cache()
+    return vis["launches"]
+
+
+# -------------------------- 19. the renderers (run_render.py)
+def phase_render_path() -> dict:
+    """examples/run_render_torch.py's default configuration at its size:
+    the edge-modes renderer (lb <= E, the image finite, the depth finite
+    wherever the pixel has a colour mode — the reference leaves it NaN
+    where none exists) and the occlusion renderer (energies finite)."""
+    pair = io.load_pair(RENDER_PAIR, dtype=np.float32)
+    y0, y1, x0, x1 = RENDER_CROP
+    views = [im[y0:y1, x0:x1] for im in pair.images]
+    sz = views[0].shape[:2]
+    d_max = float(pair.disp_range[1] * pair.disparity_factor)
+    P = middle_view_P(abs(pair.P[1, 0, 3]))
+    disps = np.linspace(d_max, 0.0, RENDER_LEVELS)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = render_edgemodes(views, P, disps, sz, lam=20.0, thresh=30.0,
+                           max_modes=6, maxiter=60, device=DEV)
+    torch.cuda.synchronize()
+    t_edge = time.perf_counter() - t0
+    edge_counts = read_counts()
+    check(res.image.is_cuda and tuple(res.image.shape) == (*sz, 3)
+          and bool(torch.isfinite(res.image).all()),
+          "edgemodes: the image is not a finite [H, W, 3] tensor on the card")
+    no_mode = torch.isnan(res.depth)
+    check(bool(torch.isfinite(res.depth[~no_mode]).all()),
+          "edgemodes: a depth is infinite")
+    check(np.isfinite([res.energy, res.lower_bound]).all()
+          and res.lower_bound <= res.energy * (1 + 1e-6),
+          f"edgemodes: lb {res.lower_bound} > E {res.energy}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    occ = render_occl(views, P, disps, sz,
+                      OcclRenderOptions(col_thresh=30.0, lambda_=0.02,
+                                        num_loops=1, visibility=True),
+                      device=DEV)
+    torch.cuda.synchronize()
+    t_occl = time.perf_counter() - t0
+    occl_counts = read_counts()
+    check(len(occ.energies) == RENDER_LEVELS - 1
+          and np.isfinite(occ.energies).all()
+          and np.isfinite(occ.image).all(),
+          f"occl: energies {occ.energies}")
+    say("render_path", pair=RENDER_PAIR, crop=list(RENDER_CROP),
+        size=list(sz), levels=RENDER_LEVELS, edgemodes=dict(
+            seconds=t_edge, energy=res.energy, lower_bound=res.lower_bound,
+            pixels_without_mode=int(no_mode.sum()), launches=edge_counts),
+        occl=dict(seconds=t_occl, energies=occ.energies,
+                  unlabelled=occ.unlabelled,
+                  visible_share=float(occ.visibility.mean()),
+                  launches=occl_counts))
+    return dict(edgemodes=edge_counts, occl=occl_counts)
+
+
 # ------------------------------------------------------------ 5. timings
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
@@ -1917,6 +2229,7 @@ def main():
                                             banded_run)
     scanline_counts = phase_scanline_path(dm, proposals)
     host_ncc = host_ncc_moves(dm, proposals)
+    checkpoint_counts = phase_checkpoint_path(dm, proposals)
     del dm, proposals
     torch.cuda.empty_cache()
     reset_counts()
@@ -1929,6 +2242,8 @@ def main():
     phase_global_path()
     baby2_counts, host_baby2 = phase_simultaneous_path()
     say("host_path", card=smi, teddy_ncc=host_ncc, **host_baby2)
+    phase_second_order_path()
+    phase_render_path()
     launches = {
         "phase_messages_compact": main_counts["phase_messages_compact"],
         "phase_messages": full_counts["phase_messages"],
@@ -1945,6 +2260,8 @@ def main():
             r["launches_baby2_k15"] = baby2_counts[r["name"]]
         if r["name"] == "minplus_send":
             r["launches_scanline"] = scanline_counts["minplus_send"]
+        if r["name"] == "phase_messages_compact":
+            r["launches_checkpoint"] = checkpoint_counts[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

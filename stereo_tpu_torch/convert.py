@@ -1,10 +1,10 @@
 """State carried across from the JAX package, as numpy arrays.
 
-Build the port's solver problem, its ``DispMapNCC`` or its
-``DispMapGlobalStereo`` from arrays the JAX package produced (``np.asarray``
-of them), so that both packages compute the same thing from the same state —
-e.g. inject the JAX NCC volume and assignment to compare the fusion moves
-apart from volume building.
+Build the port's solver problem, its ``DispMapNCC``, its
+``DispMapGlobalStereo`` or its ``SecondOrderStereo`` from arrays the JAX
+package produced (``np.asarray`` of them), so that both packages compute
+the same thing from the same state — e.g. inject the JAX NCC volume and
+assignment to compare the fusion moves apart from volume building.
 Nothing of the JAX package is imported here.
 """
 
@@ -16,6 +16,7 @@ import torch
 from stereo_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from stereo_tpu_torch.models.global_stereo import DispMapGlobalStereo
 from stereo_tpu_torch.models.ncc import DispMapNCC
+from stereo_tpu_torch.models.second_order import SecondOrderStereo
 
 
 def _as(a, dtype, dev):
@@ -87,6 +88,31 @@ def dispmap_global_from_numpy(images, P, disp_range, disparity_factor,
         dm.start_disparity = dm._tensor(start_disparity)
     dm.restart()
     return dm
+
+
+def second_order_from_numpy(images, P, disp_range, disparity_factor,
+                            options=None, *, segments=None,
+                            triple_weights=None, start=None, disp=None,
+                            device=DEFAULT_DEVICE, **kw):
+    """A ``SecondOrderStereo`` on ``device`` carrying numpy state.
+
+    The model is built as usual, then takes ``segments`` [H,W] (its
+    curvature weights are recomputed from them) or ``triple_weights`` (one
+    [H,W] map per clique direction, used as they are), ``start`` [H,W] (the
+    random start field, ``_start``) and ``disp`` [H,W] (the current field;
+    None: the start).  ``options`` is the port's ``CVPR08Options``."""
+    if segments is not None and triple_weights is not None:
+        raise ValueError("pass segments or triple_weights, not both")
+    m = SecondOrderStereo(images, P, disp_range, disparity_factor, options,
+                          device=device, **kw)
+    if segments is not None:
+        m._weights_from_segments(segments)
+    if triple_weights is not None:
+        m._set_triple_weights(triple_weights)
+    if start is not None:
+        m._start = np.asarray(start, np.float64)
+    m.disp = m._field(m._start if disp is None else disp)
+    return m
 
 
 def banded_state_from_numpy(state, *, dtype=None, device=DEFAULT_DEVICE):

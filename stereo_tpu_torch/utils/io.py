@@ -7,8 +7,9 @@ P-matrix convention of the reference — P of view n shifts x by
 2-view pairs that is P(1,4,2) = -0.25.
 
 PNG files are read by a small decoder of this module (zlib + numpy): 8-bit
-RGB or 8/16-bit greyscale, non-interlaced — the subset the bundled data uses.
-No imaging library is imported.
+RGB or 8/16-bit greyscale, non-interlaced — the subset the bundled data uses
+— and written by a small encoder (8-bit RGB or greyscale, optional text
+chunks).  No imaging library is imported.
 """
 
 from __future__ import annotations
@@ -91,6 +92,36 @@ def read_png(path: str) -> np.ndarray:
     if depth == 16:
         return (px[..., 0].astype(np.uint16) << 8) | px[..., 1]
     return px[..., 0]
+
+
+def _chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img, text: dict | None = None) -> str:
+    """Encode ``img`` ([H, W] greyscale or [H, W, 3] RGB, uint8) as a PNG:
+    unfiltered scanlines, one zlib stream, and a ``tEXt`` chunk per
+    ``text`` item (Latin-1 keyword and value)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_png: expected uint8 [H, W] or [H, W, 3], got "
+                         f"{img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    ctype = 0 if img.ndim == 2 else 2
+    rows = img.reshape(H, -1)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1)
+    out = [_PNG_SIGNATURE,
+           _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0))]
+    for key, value in (text or {}).items():
+        out.append(_chunk(b"tEXt", key.encode("latin-1") + b"\0"
+                          + str(value).encode("latin-1")))
+    out += [_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)),
+            _chunk(b"IEND", b"")]
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+    return path
 
 
 def load_image(path: str, dtype=np.float32) -> np.ndarray:

@@ -492,3 +492,81 @@ def test_valid_average_and_unary_card_vs_cpu(cuda):
     # exp and log of the card's math library may differ from the CPU's by
     # a few ulp of values below log 2
     assert err_u <= 1e-6
+
+
+def _second_order_scene(H=10, W=14, seed=0):
+    rng = np.random.default_rng(seed)
+    im0 = np.clip(rng.uniform(0, 255, (H, W, 3)) * 0.5
+                  + np.linspace(0, 255, W)[None, :, None] * 0.5, 0, 255)
+    P = np.zeros((3, 4))
+    P[:, :3] = np.eye(3)
+    P[0, 3] = -1.0
+    D1 = np.full((H, W), 2.0)  # fronto-parallel: u ties down each column
+    D2 = rng.uniform(0, 4, (H, W))
+    return im0, np.roll(im0, -2, axis=1), P, D1, D2
+
+
+def test_visibility_terms_card_equal_cpu(cuda):
+    """Projections (multiply, add, divide: one rounding each) are bit for
+    bit between card and CPU, so the stable sort and the window scan find
+    the same pairs; the graph's edges are equal, its photo costs within
+    the card's exp / log."""
+    from stereo_tpu_torch.models import visibility as t_vis
+
+    R, im, P, D1, D2 = _second_order_scene()
+    terms = {}
+    for dev in ("cpu", cuda):
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        u, v, z, pc = t_vis.project_candidates(
+            f32(D1), f32(D2), f32(P), f32(im), f32(R), 30.0)
+        terms[str(dev)] = (
+            [a.cpu().numpy() for a in (u, v, z, pc)],
+            t_vis.build_visibility_terms(f32(D1), f32(D2), [f32(im)],
+                                         P[None], f32(R), 30.0, 0.7))
+    (cpu_p, cpu_t), (card_p, card_t) = terms["cpu"], terms["cuda"]
+    for a, b in zip(cpu_p[:3], card_p[:3]):
+        np.testing.assert_array_equal(b, a)
+    np.testing.assert_allclose(card_p[3], cpu_p[3], rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(card_t["interactions"][0],
+                                  cpu_t["interactions"][0])
+    for a, b in zip(cpu_t["edges"][:2], card_t["edges"][:2]):
+        np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("use_variance", [0, 2])
+def test_truncquad_modes_card_equals_cpu(cuda, use_variance):
+    from stereo_tpu_torch.render import modes as t_modes
+
+    rng = np.random.default_rng(use_variance)
+    I = np.round(rng.uniform(0, 10, (3, 2, 3, 5, 6)))
+    I[..., 4, :] = I[..., 0, :]
+    for dtype in (torch.float32, torch.float64):
+        cpu = t_modes.truncquad_modes(torch.as_tensor(I, dtype=dtype), 6.0,
+                                      use_variance=use_variance)
+        card = t_modes.truncquad_modes(
+            torch.as_tensor(I, dtype=dtype, device=cuda), 6.0,
+            use_variance=use_variance)
+        for k in cpu:
+            np.testing.assert_array_equal(card[k].cpu().numpy(),
+                                          cpu[k].numpy(), err_msg=k)
+
+
+def test_checkpoint_resume_on_card_bitwise(cuda, tmp_path):
+    """6 sweeps through the compact phase kernel straight, against 3, an
+    async checkpoint, a load and 3 more: equal bit for bit."""
+    from stereo_tpu_torch.utils.checkpoint import Checkpointer
+
+    args = [torch.as_tensor(a, dtype=torch.float32, device=cuda)
+            for a in testing.trws_problem(0, 15, 19, 24)]
+    kw = dict(kernel=1, tol=1.5, max_relgap=0.0)
+    full = t_trws.solve(*args, maxiter=6, **kw)
+    half = t_trws.solve(*args, maxiter=3, **kw)
+    ck = Checkpointer(str(tmp_path), async_save=True)
+    ck.save(3, {"messages": half.messages})
+    ck.wait()
+    resumed = t_trws.solve(*args, maxiter=3, **kw, messages=torch.as_tensor(
+        ck.load()[1]["['messages']"], device=cuda))
+    assert torch.equal(resumed.labels, full.labels)
+    assert torch.equal(resumed.messages, full.messages)
+    assert float(resumed.energy) == float(full.energy)
+    assert float(resumed.lower_bound) == float(full.lower_bound)

@@ -22,6 +22,9 @@ FILES = sorted(
        os.path.join(ROOT, "examples", "run_ncc_torch.py"),
        os.path.join(ROOT, "examples", "run_global_torch.py"),
        os.path.join(ROOT, "examples", "run_simultaneous_torch.py"),
+       os.path.join(ROOT, "examples", "run_second_order_torch.py"),
+       os.path.join(ROOT, "examples", "run_render_torch.py"),
+       os.path.join(ROOT, "examples", "run_full_sweep_torch.py"),
        os.path.join(ROOT, "tools", "profile_main_path.py"),
        os.path.join(ROOT, "tools", "time_banded_kernel.py"),
        os.path.join(ROOT, "tools", "profile_segpln.py")])
@@ -59,8 +62,22 @@ def test_files_found():
                  "stereo_tpu_torch/solvers/trws_tables.py",
                  "stereo_tpu_torch/solvers/qpbo_host.py",
                  "stereo_tpu_torch/solvers/trws_host.py",
+                 "stereo_tpu_torch/utils/checkpoint.py",
+                 "stereo_tpu_torch/utils/viz.py",
+                 "stereo_tpu_torch/ops/interactions.py",
+                 "stereo_tpu_torch/models/visibility.py",
+                 "stereo_tpu_torch/models/second_order.py",
+                 "stereo_tpu_torch/render/__init__.py",
+                 "stereo_tpu_torch/render/genview.py",
+                 "stereo_tpu_torch/render/edges.py",
+                 "stereo_tpu_torch/render/modes.py",
+                 "stereo_tpu_torch/render/edgemodes.py",
+                 "stereo_tpu_torch/render/occlrender.py",
                  "examples/run_global_torch.py",
-                 "examples/run_simultaneous_torch.py", "chip_smoke.py"):
+                 "examples/run_simultaneous_torch.py",
+                 "examples/run_second_order_torch.py",
+                 "examples/run_render_torch.py",
+                 "examples/run_full_sweep_torch.py", "chip_smoke.py"):
         assert must in names
     assert all(os.path.exists(f) for f in FILES)
 
@@ -138,20 +155,38 @@ def test_default_device_raises_without_card():
         segmentation.mean_shift(im0, 4, 5.0, 0)
     with pytest.raises(RuntimeError, match="cuda"):
         segpln.segpln([im0, im1], list(P), np.arange(3, -1, -1), 30.0)
+    from stereo_tpu_torch.models.second_order import (SecondOrderStereo,
+                                                      ojw_stereo)
+    from stereo_tpu_torch.render import render_occl
+    from stereo_tpu_torch.render.edgemodes import render_edgemodes
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        SecondOrderStereo([im0, im1], P, (0, 3), 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ojw_stereo([im0, im1], P, (0, 3), 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        render_edgemodes([im0, im1], P, np.arange(3.0, -1, -1), (12, 16))
+    with pytest.raises(RuntimeError, match="cuda"):
+        render_occl([im0, im1], P, np.arange(3.0, -1, -1), (12, 16))
     # asked for explicitly, the CPU is fine
     assert geometry.fronto_parallel(4, 5, 1.0, device="cpu").shape == (4, 4, 5)
 
 
-@pytest.mark.parametrize("name", ["run_global_torch",
-                                  "run_simultaneous_torch"])
-def test_examples_raise_without_card(name, monkeypatch):
-    """The two SegPln examples run on the card by default and raise without
-    one; they never carry on on the CPU unless asked."""
+@pytest.mark.parametrize("name,args", [
+    ("run_global_torch", ["--pair", "synth"]),
+    ("run_simultaneous_torch", ["--pair", "synth"]),
+    ("run_second_order_torch", ["--pair", "synth", "--crop", "0", "8", "0",
+                                "8"]),
+    ("run_render_torch", ["--pair", "synth", "--crop", "0", "8", "0", "8"]),
+    ("run_full_sweep_torch", ["--pairs", "synth"])])
+def test_examples_raise_without_card(name, args, monkeypatch):
+    """The examples run on the card by default and raise without one; they
+    never carry on on the CPU unless asked."""
     _skip_if_card()
     import runpy
     import sys
 
-    monkeypatch.setattr(sys, "argv", [name, "--pair", "synth"])
+    monkeypatch.setattr(sys, "argv", [name, *args])
     with pytest.raises(RuntimeError, match="cuda"):
         runpy.run_path(os.path.join(ROOT, "examples", name + ".py"),
                        run_name="__main__")
