@@ -92,6 +92,21 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      sweeps straight against 4, an async checkpoint of the messages, a load
      and 4 more from the loaded messages; labels, energy, bound and
      messages bit for bit, 32 launches counted (``checkpoint_path``);
+ 16a. (run after 16, on the main path's model after a restart) the
+     distribution layer (parallel/*, solvers/banded_dist.py): the K = 79
+     problem's sharded_solve over 2 and 3 column shards of the card, 8
+     sweeps through kernel 1 (2 launches a sweep a shard) and 2 over 2
+     shards through kernel 2, labels and messages bit for bit against
+     trws.solve; one fusion move over 3 shards, the take mask and planes
+     bit for bit against binary_fuse (sorted verdicts); sharded_banded_run
+     over 3 stripes of 128 x 128 blocks, 4 sweeps with a decode every 2,
+     one launch of kernel 4 a step a stripe, labels and messages bit for
+     bit against BandedRun(sweep="steps"); examples/run_batch_torch.py's
+     pool with 3 teddy pairs in its 2 slots (no pair failed, each energy
+     within rel 1e-4 of its own solve); entry.dryrun_multichip(4); and two
+     processes on the card joined over gloo (parallel/multihost.py) solving
+     a K = 15 problem at teddy's shape, bit for bit against one process
+     (``parallel_*`` lines);
  17. examples/run_second_order_torch.py's default configuration at its size
      (teddy crop 120 x 180, max-disp 14, connect 4, visibility on): 8
      fusions with visibility and 4 without (the host QPBO with the cubic
@@ -121,6 +136,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -149,12 +165,17 @@ try:
     from stereo_tpu_torch.render import OcclRenderOptions, render_occl
     from stereo_tpu_torch.render.edgemodes import render_edgemodes
     from stereo_tpu_torch.models import base as base_model
-    from stereo_tpu_torch.solvers import (banded, qpbo_host, scanline,
-                                          trws, trws_host, wavefront)
+    from stereo_tpu_torch import entry, energy as energy_mod
+    from stereo_tpu_torch.parallel import batch as batch_mod
+    from stereo_tpu_torch.parallel import fusion_dist, mesh as mesh_mod
+    from stereo_tpu_torch.solvers import (banded, banded_dist, binary,
+                                          qpbo_host, scanline, trws,
+                                          trws_host, wavefront)
     from stereo_tpu_torch.utils import io
     from stereo_tpu_torch.utils.checkpoint import Checkpointer
     from stereo_tpu_torch.utils.metrics import EnergyTrace
     from examples.run_render_torch import middle_view_P
+    from examples import run_batch_torch
 except ModuleNotFoundError as exc:
     raise SystemExit(f"chip_smoke.py: {exc}; run it from the root of a "
                      "checkout of the repository, beside stereo_tpu_torch/")
@@ -282,6 +303,20 @@ RENDER_PAIR, RENDER_CROP, RENDER_LEVELS = "teddy", (120, 240, 120, 280), 9
 # utils/checkpoint on the main path's K = 79 checkerboard problem (kernel
 # 1): CKPT_SWEEPS straight against half, a checkpoint, a load and half
 CKPT_SWEEPS, CKPT_CHECK_EVERY = 8, 4
+# the distribution layer on the main path's K = 79 problem: the sharded
+# checkerboard solve over PAR_SHARDS column shards of the one card (kernel
+# 1), PAR_FULL_SWEEPS of it on the full grid (kernel 2), one fusion move over
+# PAR_FUSION_SHARDS shards, the banded stripes (ceil(375 / 128) = 3, one
+# block-row each; kernel 4) for PAR_BANDED_SWEEPS with a decode every
+# PAR_BANDED_DECODE; run_batch_torch.py's pool with POOL_PAIRS in its 2
+# slots; dryrun_multichip(DRYRUN_SHARDS); the two-process solve of a
+# synthetic K = 15 problem at teddy's shape over gloo
+PAR_SWEEPS, PAR_SHARDS, PAR_FULL_SWEEPS = 8, (2, 3), 2
+PAR_FUSION_SHARDS, PAR_FUSION_ITERS = 3, 20
+PAR_BANDED_SWEEPS, PAR_BANDED_DECODE = 4, 2
+POOL_PAIRS = ("teddy", "teddy", "teddy")
+DRYRUN_SHARDS = 4
+MULTIHOST_K, MULTIHOST_SWEEPS, MULTIHOST_TIMEOUT = 15, 8, 300
 
 
 def check(ok, what: str):
@@ -1602,6 +1637,256 @@ def phase_checkpoint_path(dm, proposals) -> dict:
     return counts
 
 
+# -------------------------- 17a. the distribution layer (parallel/*)
+def on_shards(n: int):
+    """n shards of the one card."""
+    return [DEV] * n
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def parallel_solve(args, kw, smi) -> dict:
+    """sharded_solve over 2 and 3 column shards against trws.solve, bit for
+    bit, through kernel 1 (2 launches a sweep a shard); then 2 sweeps on the
+    full grid over 2 shards through kernel 2."""
+    ref, t_ref = timed(lambda: trws.solve(*args, **kw))
+    out = {"one_device_seconds": t_ref}
+    launches = {"phase_messages_compact": 0, "phase_messages": 0}
+    for n in PAR_SHARDS:
+        mesh = mesh_mod.make_mesh(n, devices=on_shards(n))
+        reset_counts()
+        res, secs = timed(lambda: mesh_mod.sharded_solve(mesh, *args, **kw))
+        counts = read_counts()
+        check(torch.equal(res.labels, ref.labels)
+              and torch.equal(res.messages, ref.messages),
+              f"{n} shards: labels or messages differ from one device")
+        rel = abs(float(res.energy) - float(ref.energy)) / float(ref.energy)
+        check(rel <= 1e-5, f"{n} shards: energy off by {rel}")
+        expect = 2 * PAR_SWEEPS * n
+        check(counts["phase_messages_compact"] == expect,
+              f"{n} shards: {counts['phase_messages_compact']} launches of "
+              f"kernel 1, expected {expect}")
+        launches["phase_messages_compact"] += expect
+        out[f"shards{n}"] = dict(
+            seconds=secs, launches=counts, energy=float(res.energy),
+            lower_bound=float(res.lower_bound), energy_rel_diff=rel,
+            labels_messages="bit for bit")
+    fkw = dict(kw, maxiter=PAR_FULL_SWEEPS, check_every=PAR_FULL_SWEEPS,
+               compact=False)
+    ref = trws.solve(*args, **fkw)
+    mesh = mesh_mod.make_mesh(2, devices=on_shards(2))
+    reset_counts()
+    res, secs = timed(lambda: mesh_mod.sharded_solve(mesh, *args, **fkw))
+    counts = read_counts()
+    check(torch.equal(res.labels, ref.labels)
+          and torch.equal(res.messages, ref.messages),
+          "full grid, 2 shards: labels or messages differ from one device")
+    check(counts["phase_messages"] == 2 * PAR_FULL_SWEEPS * 2
+          and counts["phase_messages_compact"] == 0,
+          f"full grid, 2 shards: launches {counts}")
+    launches["phase_messages"] = counts["phase_messages"]
+    out["full_grid_shards2"] = dict(seconds=secs, sweeps=PAR_FULL_SWEEPS,
+                                    launches=counts,
+                                    labels_messages="bit for bit")
+    say("parallel_solve", card=smi, K=int(args[0].shape[0]),
+        size=list(args[0].shape[1:]), sweeps=PAR_SWEEPS, **out)
+    return launches
+
+
+def parallel_fusion(dm, proposals, smi):
+    """One fusion move over 3 column shards against binary_fuse (sorted
+    verdicts): the take mask and the fused planes bit for bit."""
+    cur = dm.assignment
+    prop = dm._tensor(proposals[len(proposals) // 2])
+    U0, U1 = dm.unary_map(cur), dm.unary_map(prop)
+    kw = dict(kernel=dm.smoothness_kernel, tol=dm.tol,
+              maxiter=PAR_FUSION_ITERS, max_relgap=0.0)
+    D0, Q = binary.fusion_problem(cur, prop, dm.normalize)
+    ref, t_ref = timed(lambda: binary.binary_fuse(
+        U0, U1, D0, Q, dm.smooth_weights, **kw, accept_method="sort"))
+    mesh = mesh_mod.make_mesh(PAR_FUSION_SHARDS,
+                              devices=on_shards(PAR_FUSION_SHARDS))
+    (fused, take, e, lb), secs = timed(lambda: fusion_dist.sharded_fusion_step(
+        mesh, cur, prop, U0, U1, dm.smooth_weights, normalize=dm.normalize,
+        **kw))
+    check(torch.equal(take, ref.take)
+          and torch.equal(fused, energy_mod.fuse_labelling(cur, prop,
+                                                           ref.take)),
+          "sharded fusion move: take mask or planes differ from one device")
+    rel = abs(float(e) - float(ref.energy)) / float(ref.energy)
+    check(rel <= 1e-5, f"sharded fusion move: energy off by {rel}")
+    say("parallel_fusion", card=smi, shards=PAR_FUSION_SHARDS,
+        sweeps=PAR_FUSION_ITERS, taken=int(take.sum()), energy=float(e),
+        lower_bound=float(lb), energy_rel_diff=rel, seconds=secs,
+        one_device_seconds=t_ref, take_mask="bit for bit")
+
+
+def parallel_banded(args, kernel, tol, smi) -> int:
+    """sharded_banded_run over the gy stripes of 128 x 128 blocks against
+    BandedRun(sweep="steps"): labels and messages bit for bit; one launch
+    of kernel 4 a step a stripe."""
+    K, H, W = args[0].shape
+    stripes = -(-H // BAND)
+    kw = dict(kernel=kernel, tol=tol, Bh=BAND, Bw=BAND)
+    run = banded.BandedRun(*args, **kw, sweep="steps")
+    (st, e_ref, _, l_ref), t_ref = timed(lambda: run.run(
+        run.init_state(), PAR_BANDED_SWEEPS, PAR_BANDED_DECODE))
+    m_ref = run.messages(st)
+    del st, run
+    mesh = banded_dist.make_y_mesh(stripes, devices=on_shards(stripes))
+    reset_counts()
+    res, secs = timed(lambda: banded_dist.sharded_banded_run(
+        mesh, *args, **kw, sweeps=PAR_BANDED_SWEEPS,
+        decode_every=PAR_BANDED_DECODE))
+    counts = read_counts()
+    T = banded.BandedSpec(H // stripes, W, BAND, BAND).T
+    expect = 2 * T * PAR_BANDED_SWEEPS * stripes
+    check(torch.equal(res.labels, l_ref),
+          "banded stripes: labels differ from one device")
+    same_msgs = torch.equal(res.messages, m_ref)
+    check(same_msgs, "banded stripes: messages differ from one device")
+    check(counts["minplus_send"] == expect,
+          f"banded stripes: {counts['minplus_send']} launches of kernel 4, "
+          f"expected {expect}")
+    rel = abs(float(res.energy) - float(e_ref)) / float(e_ref)
+    check(rel <= 1e-5, f"banded stripes: energy off by {rel}")
+    say("parallel_banded", card=smi, K=K, size=[H, W], blocks=[BAND, BAND],
+        stripes=stripes, steps=2 * T, sweeps=PAR_BANDED_SWEEPS,
+        decode_every=PAR_BANDED_DECODE, launches=counts,
+        energy=float(res.energy), lower_bound=float(res.lower_bound),
+        energy_rel_diff=rel, seconds=secs, one_device_seconds=t_ref,
+        labels_messages="bit for bit")
+    return expect
+
+
+def parallel_pool(smi) -> int:
+    """run_batch_torch.py's pool (max-disp 30, a fronto-parallel ladder
+    every 6, 200 sweeps, a check every 25) with 3 pairs in its 2 slots:
+    no pair fails, each within rel 1e-4 of its own solve."""
+    a = run_batch_torch.parse(["--pairs", *POOL_PAIRS])
+    (mesh, models, props), t_build = timed(lambda: run_batch_torch.build(a))
+    singles = []
+    for dm_, pr in zip(models, props):
+        u, d0, q, al, _ = batch_mod.model_problem(dm_, pr)
+        singles.append(float(trws.solve(
+            u, d0, q, al, kernel=1, tol=dm_.tol, maxiter=a.maxiter,
+            max_relgap=1e-4, check_every=a.check_every).energy))
+    reset_counts()
+    out, secs = run_batch_torch.run(a, mesh, models, props)
+    counts = read_counts()
+    for r, e1 in zip(out, singles):
+        check(r["status"] in ("converged", "maxiter"), f"pool pair {r}")
+        check(abs(r["energy"] - e1) <= 1e-4 * abs(e1),
+              f"pool pair {r} against its own solve's E {e1}")
+    sweeps = sum(r["iterations"] for r in out)
+    check(counts["phase_messages_compact"] == 2 * sweeps,
+          f"pool: {counts['phase_messages_compact']} launches of kernel 1 "
+          f"for {sweeps} sweeps")
+    say("parallel_pool", card=smi, pairs=len(out), slots=a.batch,
+        K=len(props[0]) + 1, results=out, own_solve_energies=singles,
+        seconds=secs, build_seconds=t_build, launches=counts)
+    return counts["phase_messages_compact"]
+
+
+def parallel_dryrun(smi):
+    reset_counts()
+    out, secs = timed(lambda: entry.dryrun_multichip(DRYRUN_SHARDS))
+    counts = read_counts()
+    for name in ("phase_messages_compact", "phase_messages", "minplus_send"):
+        check(counts[name] > 0, f"dryrun_multichip launched no {name}")
+    say("parallel_dryrun", card=smi, shards=DRYRUN_SHARDS, mesh=out["mesh"],
+        seconds=secs, launches=counts)
+
+
+def parallel_multihost(smi):
+    """Two processes on the one card joined over gloo (NCCL refuses two
+    ranks on one GPU): the sharded solve of a synthetic problem at teddy's
+    shape equals this process's one-device solve."""
+    H, W = EXPECT["size"]
+    prob = testing.synthetic_problem(MULTIHOST_K, H, W, seed=3)
+    kw = dict(kernel=1, tol=0.5, maxiter=MULTIHOST_SWEEPS, max_relgap=0.0,
+              check_every=MULTIHOST_SWEEPS)
+    ref = trws.solve(*(torch.as_tensor(a, device=DEV) for a in prob), **kw)
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    with tempfile.TemporaryDirectory() as d:
+        inp, res_path = f"{d}/in.npz", f"{d}/out.npz"
+        np.savez(inp, **dict(zip(("theta", "D0", "Q", "alphas"), prob)))
+        cmd = [sys.executable, "-m", "stereo_tpu_torch.parallel.multihost",
+               "RANK", "2", coord, "--inputs", inp, "--out", res_path,
+               "--device", "cuda:0", "--backend", "gloo",
+               "--kernel", "1", "--tol", "0.5",
+               "--maxiter", str(MULTIHOST_SWEEPS), "--check-every",
+               str(MULTIHOST_SWEEPS), "--timeout", str(MULTIHOST_TIMEOUT)]
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([c if c != "RANK" else str(r)
+                                   for c in cmd], cwd=root,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in (1, 0)]
+        try:
+            outs = [p.communicate(timeout=MULTIHOST_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:  # only the processes started here
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        secs = time.perf_counter() - t0
+        for p, (o, e) in zip(procs, outs):
+            check(p.returncode == 0,
+                  f"multihost worker exit {p.returncode}: {e[-3000:]}")
+        got = np.load(res_path)
+        info = json.loads(outs[1][0].strip().splitlines()[-1])
+        check(np.array_equal(got["solve_labels"], ref.labels.cpu().numpy())
+              and np.array_equal(got["solve_messages"],
+                                 ref.messages.cpu().numpy()),
+              "two processes: labels or messages differ from one process")
+    rel = abs(info["solve_energy"] - float(ref.energy)) / float(ref.energy)
+    check(rel <= 1e-5, f"two processes: energy off by {rel}")
+    launches = json.loads(info["launches"])
+    check(launches["phase_messages_compact"] == 2 * MULTIHOST_SWEEPS,
+          f"process 0 launched kernel 1 {launches} times")
+    say("parallel_multihost", card=smi, processes=2,
+        transport=info["transport"], K=MULTIHOST_K, size=[H, W],
+        sweeps=MULTIHOST_SWEEPS, energy=info["solve_energy"],
+        energy_rel_diff=rel, solve_seconds=info["solve_seconds"],
+        seconds_with_start=secs, launches_process0=launches,
+        labels_messages="bit for bit")
+
+
+def phase_parallel_path(dm, proposals, smi) -> dict:
+    """The distribution layer on the card: column shards, a sharded fusion
+    move, banded stripes, the pool, the dry run and two processes.  Returns
+    the launches of kernels 1, 2 and 4 on the sharded runs."""
+    dm.restart()
+    t0 = time.perf_counter()
+    unary, D0, Q, alphas, _ = batch_mod.model_problem(dm, proposals)
+    args = (unary, D0, Q, alphas)
+    kw = dict(kernel=dm.smoothness_kernel, tol=dm.tol, maxiter=PAR_SWEEPS,
+              max_relgap=0.0, check_every=PAR_SWEEPS)
+    launches = parallel_solve(args, kw, smi)
+    parallel_fusion(dm, proposals, smi)
+    launches["minplus_send"] = parallel_banded(args, dm.smoothness_kernel,
+                                               dm.tol, smi)
+    del unary, D0, Q, alphas, args
+    torch.cuda.empty_cache()
+    launches["phase_messages_compact_pool"] = parallel_pool(smi)
+    parallel_dryrun(smi)
+    parallel_multihost(smi)
+    say("parallel_path", card=smi, seconds=time.perf_counter() - t0,
+        launches=launches)
+    return launches
+
+
 # ------------------- 18. the second-order chain (run_second_order.py)
 def second_order_inputs():
     pair = io.load_pair(SO_PAIR)
@@ -2230,6 +2515,7 @@ def main():
     scanline_counts = phase_scanline_path(dm, proposals)
     host_ncc = host_ncc_moves(dm, proposals)
     checkpoint_counts = phase_checkpoint_path(dm, proposals)
+    parallel_counts = phase_parallel_path(dm, proposals, smi)
     del dm, proposals
     torch.cuda.empty_cache()
     reset_counts()
@@ -2262,6 +2548,11 @@ def main():
             r["launches_scanline"] = scanline_counts["minplus_send"]
         if r["name"] == "phase_messages_compact":
             r["launches_checkpoint"] = checkpoint_counts[r["name"]]
+            r["launches_pool"] = parallel_counts[
+                "phase_messages_compact_pool"]
+        if r["name"] in ("phase_messages_compact", "phase_messages",
+                         "minplus_send"):
+            r["launches_sharded"] = parallel_counts[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

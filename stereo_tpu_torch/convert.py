@@ -47,6 +47,23 @@ def problem_from_numpy(unary, D0, Q, alphas, messages=None, *, dtype=None,
             _as(alphas, dtype, dev), msgs)
 
 
+
+def batched_problem_from_numpy(unary, D0, Q, alphas, messages=None, *,
+                               dtype=None, device=DEFAULT_DEVICE):
+    """A batch of B problems ([B, K, H, W], [B, K, H, W], [B, 4, K, H, W],
+    [B, 4, H, W] and optionally messages [B, 4, K, H, W]), e.g. the JAX
+    package's parallel.batch.batched_problem, as stacked tensors on
+    ``device``: the positional arguments of parallel.mesh.sharded_solve plus
+    the warm start."""
+    B = np.shape(unary)[0]
+    pairs = [problem_from_numpy(
+        unary[b], D0[b], Q[b], alphas[b],
+        None if messages is None else messages[b], dtype=dtype,
+        device=device) for b in range(B)]
+    return tuple(None if pairs[0][j] is None
+                 else torch.stack([p[j] for p in pairs])
+                 for j in range(5))
+
 def dispmap_ncc_from_numpy(images, disparities, kernel, unary_weight, tol,
                            ncc=None, assignment=None, smooth_weights=None,
                            *, device=DEFAULT_DEVICE, **kw):

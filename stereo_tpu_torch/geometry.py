@@ -34,11 +34,14 @@ def take_plane(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(X, 0, idx[None].long())[0]
 
 
-def grid_points(H: int, W: int, dtype=torch.float32, device=DEFAULT_DEVICE):
-    """1-based pixel coordinates ``(xs, ys)``, each of shape [H, W]."""
+def grid_points(H: int, W: int, dtype=torch.float32, device=DEFAULT_DEVICE,
+                x0: int = 0):
+    """1-based pixel coordinates ``(xs, ys)``, each of shape [H, W]; ``x0``
+    is the global column of column 0 (a column shard of a wider image)."""
     dev = resolve_device(device)
     ys = torch.arange(1, H + 1, dtype=dtype, device=dev)[:, None].expand(H, W)
-    xs = torch.arange(1, W + 1, dtype=dtype, device=dev)[None, :].expand(H, W)
+    xs = torch.arange(1 + x0, W + 1 + x0, dtype=dtype,
+                      device=dev)[None, :].expand(H, W)
     return xs, ys
 
 
@@ -53,10 +56,12 @@ def plane_disparity(planes, xs, ys):
     return -(a * xs + b * ys + d) / c
 
 
-def own_disparity(planes):
-    """Disparity of each pixel's own plane at its own point."""
+def own_disparity(planes, x0: int = 0):
+    """Disparity of each pixel's own plane at its own point (``x0``: see
+    grid_points)."""
     H, W = planes.shape[-2:]
-    xs, ys = grid_points(H, W, dtype=planes.dtype, device=planes.device)
+    xs, ys = grid_points(H, W, dtype=planes.dtype, device=planes.device,
+                         x0=x0)
     return plane_disparity(planes, xs, ys)
 
 
@@ -112,12 +117,14 @@ def valid_mask(H: int, W: int, d: int, dtype=torch.bool,
     return _ok_mask(H, W, d, resolve_device(device)).to(dtype, copy=True)
 
 
-def neighbor_plane_disparity(planes, d: int, fill=float("inf")):
+def neighbor_plane_disparity(planes, d: int, fill=float("inf"),
+                             x0: int = 0):
     """Disparity of the direction-``d`` *neighbor's* plane evaluated at the
     pixel's *own* point.  planes: [..., 4, H, W] -> [..., H, W]; invalid
-    borders get ``fill``."""
+    borders get ``fill`` (``x0``: see grid_points)."""
     H, W = planes.shape[-2:]
-    xs, ys = grid_points(H, W, dtype=planes.dtype, device=planes.device)
+    xs, ys = grid_points(H, W, dtype=planes.dtype, device=planes.device,
+                         x0=x0)
     shifted = shift_from_neighbor(planes, d, fill=1.0)  # fill keeps c != 0
     disp = plane_disparity(shifted, xs, ys)
     return mask_valid(disp, d, fill)

@@ -383,14 +383,16 @@ class DispMap:
 # --------------------------------------------------------------- core steps
 
 
-def _positions(planes, normalize):
+def _positions(planes, normalize, x0: int = 0):
     """Pairwise positions of a plane field [..., 4, H, W]: each pixel's own
     disparity D0 [..., H, W] and its four neighbours' planes evaluated at the
-    pixel, Q [4, ..., H, W] (0 at the borders)."""
-    D0 = energy.normalized(geometry.own_disparity(planes), normalize)
+    pixel, Q [4, ..., H, W] (0 at the borders).  ``x0``: the global column
+    of column 0 (geometry.grid_points)."""
+    D0 = energy.normalized(geometry.own_disparity(planes, x0), normalize)
     Q = torch.stack(
         [energy.normalized(
-            geometry.neighbor_plane_disparity(planes, d, fill=0.0), normalize)
+            geometry.neighbor_plane_disparity(planes, d, fill=0.0, x0=x0),
+            normalize)
          for d in range(geometry.NUM_DIRS)], dim=0)
     return D0, Q
 

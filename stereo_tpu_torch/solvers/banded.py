@@ -65,8 +65,9 @@ of ``use_kernel`` give the same messages (bit for bit in float32 on the
 card); the fused kernel's lower bound is summed in another order and agrees
 to float32 rounding.
 
-Not ported yet (ROADMAP.md): the ``stripe=`` argument of the problem, which
-exists for the multi-device solver; narrow message storage.
+``_BandedProblem(stripe=...)`` builds one gy-stripe of a taller image for
+the distributed solver (solvers/banded_dist.py).  Not ported yet
+(ROADMAP.md): narrow message storage.
 """
 
 from __future__ import annotations
@@ -230,26 +231,38 @@ def _y_lanes_back(v, spec, yb):
     return _from_blocks(full, spec)
 
 
-def _grid(spec, device):
-    ys = torch.arange(spec.H, device=device)[:, None].expand(spec.H, spec.W)
+def _grid(spec, device, row0: int = 0):
+    """Global row and column indices [H, W] of a spec's pixels, its rows
+    starting at image row ``row0``."""
+    ys = torch.arange(row0, row0 + spec.H,
+                      device=device)[:, None].expand(spec.H, spec.W)
     xs = torch.arange(spec.W, device=device)[None, :].expand(spec.H, spec.W)
     return ys, xs
 
 
-def banded_gamma(spec, dtype=torch.float32, device=DEFAULT_DEVICE):
+def banded_gamma(spec, dtype=torch.float32, device=DEFAULT_DEVICE,
+                 row0: int = 0, Himg: int | None = None):
     """gamma = 1/max(nFwd, nBwd) under the banded order, [H, W].
 
     Each neighbour pair carries two directed edges, so n* = 2 * #neighbours
-    on that side; seam neighbours swap sides relative to raster order."""
+    on that side; seam neighbours swap sides relative to raster order.
+
+    ``row0`` / ``Himg`` place the spec's rows inside a taller image (the
+    gy-stripes of solvers/banded_dist.py): neighbour existence is judged
+    against the global rows ``row0 + y`` of an ``Himg``-row image, so a
+    stripe's gammas equal the matching rows of the full image's bit for
+    bit."""
     device = resolve_device(device)
     H, W, Bh, Bw = spec.H, spec.W, spec.Bh, spec.Bw
-    ys, xs = _grid(spec, device)
+    if Himg is None:
+        Himg = H
+    ys, xs = _grid(spec, device, row0)
     yb = ys % Bh
     xb = xs % Bw
     has_l = xs >= 1
     has_r = xs <= W - 2
     has_u = ys >= 1
-    has_d = ys <= H - 2
+    has_d = ys <= Himg - 2
     # later neighbours: interior right/down, seam left/up
     n_f = ((has_r & (xb < Bw - 1)).to(dtype)
            + (has_d & (yb < Bh - 1)).to(dtype)
@@ -267,9 +280,18 @@ def banded_gamma(spec, dtype=torch.float32, device=DEFAULT_DEVICE):
 class _BandedProblem:
     """Skewed, t-leading problem data + static masks for the banded order,
     on the device of ``theta``; every array is contiguous (the fused kernel
-    reads them where they lie)."""
+    reads them where they lie).
 
-    def __init__(self, theta, D0, Q, alphas, spec: BandedSpec, kernel, tol):
+    ``stripe=(row0, Himg, has_above, has_below)`` builds the problem as one
+    gy-stripe of a taller ``Himg``-row image starting at global row ``row0``
+    (solvers/banded_dist.py): validity / seam masks and gammas are judged
+    against global rows, rows at or past ``Himg`` (the padding of the last
+    stripe) are masked out, and the y-seam edges to the stripes above and
+    below become live side-array entries.  ``stripe=None`` is the
+    one-device problem."""
+
+    def __init__(self, theta, D0, Q, alphas, spec: BandedSpec, kernel, tol,
+                 stripe=None):
         if kernel not in (1, 2):
             raise ValueError(f"Unknown smoothness kernel {kernel!r}")
         K, H, W = theta.shape
@@ -279,6 +301,10 @@ class _BandedProblem:
         self.spec = spec
         self.K, self.kernel, self.tol = K, kernel, tol
         self.dtype, self.device = dtype, dev
+        if stripe is None:
+            stripe = (0, H, False, False)
+        row0, Himg, has_above, has_below = stripe
+        self.stripe = stripe
         Bh, Bw, Gy, Gx, nb = spec.Bh, spec.Bw, spec.Gy, spec.Gx, spec.nb
 
         tc = lambda a: to_cols(a, spec)
@@ -289,17 +315,18 @@ class _BandedProblem:
         self.aA = tc(torch.stack([alphas[d] for d in GROUP_A], 0))
         self.aB = tc(torch.stack([alphas[d] for d in GROUP_B], 0))
 
-        ys, xs = _grid(spec, dev)
+        ys, xs = _grid(spec, dev, row0)
         yb, xb = ys % Bh, xs % Bw
+        inim = ys < Himg  # the last stripe's pad rows are out
         # interior (non-seam) directed-edge validity, image space
-        vLT = (xs >= 1) & (xb > 0)
-        vRT = (xs <= W - 2) & (xb < Bw - 1)
-        vUP = (ys >= 1) & (yb > 0)
-        vDN = (ys <= H - 2) & (yb < Bh - 1)
+        vLT = (xs >= 1) & (xb > 0) & inim
+        vRT = (xs <= W - 2) & (xb < Bw - 1) & inim
+        vUP = (ys >= 1) & (yb > 0) & inim
+        vDN = (ys <= Himg - 2) & (yb < Bh - 1) & inim
         self.vA = tc(torch.stack([vRT, vDN], 0).to(dtype))  # [T+2, 2, L]
         self.vB = tc(torch.stack([vLT, vUP], 0).to(dtype))
-        self.pix = tc(torch.ones((H, W), dtype=dtype, device=dev))  # [T+2,L]
-        self.gamma = tc(banded_gamma(spec, dtype, dev))
+        self.pix = tc(inim.to(dtype))  # [T+2, L]
+        self.gamma = tc(banded_gamma(spec, dtype, dev, row0, Himg))
 
         # ---- static seam data (side-array layouts) ----
         xl = lambda a, x: _x_lanes(a, spec, x).contiguous()
@@ -326,13 +353,14 @@ class _BandedProblem:
         lane_b = lane % nb
         lane_gy = lane_b // Gx
         lane_gx = lane_b % Gx
-        yimg = lane_gy * Bh + self.lane_yb  # image row of the lane's node
+        yimg = row0 + lane_gy * Bh + self.lane_yb  # the lane node's image row
         # [L] whether the lane's node has a real neighbour across the y-seam
-        self.has_up = lane_gy > 0
-        self.has_dn = lane_gy < Gy - 1
+        # (at a stripe's border when a neighbour stripe exists)
+        self.has_up = (lane_gy > 0) | ((lane_gy == 0) & has_above)
+        self.has_dn = (lane_gy < Gy - 1) | ((lane_gy == Gy - 1) & has_below)
         # node-level static validity of the seam edge buffers (lane layout)
-        self.vSxL = (lane_gx > 0) & (yimg < H) & (lane_gx * Bw < W)
-        self.vSxR = ((lane_gx < Gx - 1) & (yimg < H)
+        self.vSxL = (lane_gx > 0) & (yimg < Himg) & (lane_gx * Bw < W)
+        self.vSxR = ((lane_gx < Gx - 1) & (yimg < Himg)
                      & ((lane_gx + 1) * Bw < W))
         lane2 = torch.arange(spec.Lp, device=dev)
         l2_xb = lane2 // nb
@@ -342,8 +370,13 @@ class _BandedProblem:
         in2 = (lane2 < spec.L2) & (l2_gx * Bw + l2_xb < W)
         self.l2_grp = l2_xb
         # seam-edge validity: the pair's lower node pD must be a real pixel
-        self.vSyU = in2 & (l2_gy > 0) & (l2_gy * Bh < H)
-        self.vSyD = in2 & (l2_gy < Gy - 1) & ((l2_gy + 1) * Bh < H)
+        # (every block-row holds a real row, so a live neighbour stripe means
+        # pD's row is inside the image at the stripe border)
+        self.vSyU = (in2 & ((l2_gy > 0) | has_above)
+                     & (row0 + l2_gy * Bh < Himg))
+        self.vSyD = (in2 & ((l2_gy < Gy - 1) | ((l2_gy == Gy - 1)
+                                                 & has_below))
+                     & (row0 + (l2_gy + 1) * Bh < Himg))
 
 
 def _sdownb(v, nb):
@@ -406,24 +439,34 @@ def _beliefs(bp: _BandedProblem, MA, MB, c, t, S, views):
     return D, (Ac, Bc, Acm1, Bcp1), (mx0, mxW, my0, myT)
 
 
-def _fwd_col(bp: _BandedProblem, state, t, use_kernel=True):
-    """One forward step: process all nodes of (real) column t.  Writes the
-    two message columns in place."""
+def _fwd_gd(bp: _BandedProblem, state, t, views):
+    """Forward step t's scaled beliefs gD [K, L] and seam masks."""
+    MA, MB, S = state
+    c = t + 1
+    D, _, masks = _beliefs(bp, MA, MB, c, t, S, views)
+    return bp.gamma[c][None, :] * D, masks
+
+
+def _fwd_y_src(bp: _BandedProblem, gD, t):
+    """The F-tail y sends' source beliefs: M[DN]@(., Bh-1, t) reads the
+    down-block's node (b + Gx, 0, t).  [K, Lp] in lane2 layout."""
     spec = bp.spec
-    nb, Gx, Lp = spec.nb, spec.Gx, spec.Lp
-    ktol = (bp.kernel, bp.tol, use_kernel)
+    return _roll(_padLp(gD, spec.Lp), t * spec.nb - spec.Gx)
+
+
+def _fwd_sends(bp: _BandedProblem, state, t, views, gD, masks, src_y,
+               use_kernel=True):
+    """Forward step t's six sends, each from the state before the step, and
+    their writes (the two message columns in place)."""
+    spec = bp.spec
+    nb, Lp = spec.nb, spec.Lp
     MA, MB, S = state
     SxL, SxR, SyU, SyD = S
     c = t + 1
-    views = _seam_views(bp, S, t)
-    D, (Ac, _, _, Bcp1), masks = _beliefs(bp, MA, MB, c, t, S, views)
+    Ac, Bcp1 = MA[c], MB[c + 1]
     mx0, mxW, my0, myT = masks
-    gD = bp.gamma[c][None, :] * D  # [K, L]
-
     QB_c, D0_c, aB_c = bp.QB[c], bp.D0[c], bp.aB[c]
     gDt = torch.stack([gD, _sdownb(gD, nb)], 0)
-    gDp = _padLp(gD, Lp)
-    # the step's six sends, each from the state before the step:
     (mh, _), (mt, _), (mlt, _), (mup, _), (mrt, _), (mdn, _) = _sends([
         # interior head-sends, group A (RT, DN) at column c
         _head(gD[None], Ac, bp.QA[c], bp.D0[c][None], bp.aA[c]),
@@ -436,8 +479,8 @@ def _fwd_col(bp: _BandedProblem, state, t, use_kernel=True):
         # F-tail x: M[RT]@(., t, Bw-1) <- source (b+1, t, 0)
         _tail(_roll(gD, -1), SxR, bp.PxR_q, bp.PxR_d0, bp.PxR_a),
         # F-tail y: M[DN]@(., Bh-1, t) <- source (b+Gx down-block, 0, t)
-        _tail(_roll(gDp, t * nb - Gx), SyD, bp.PyD_q, bp.PyD_d0, bp.PyD_a),
-    ], *ktol)
+        _tail(src_y, SyD, bp.PyD_q, bp.PyD_d0, bp.PyD_a),
+    ], bp.kernel, bp.tol, use_kernel)
     MA[c] = torch.where(bp.vA[c][:, None, :] > 0, mh, Ac)
     MB[c + 1] = torch.where(bp.vB[c + 1][:, None, :] > 0, mt, Bcp1)
     upd = _roll(_padLp(torch.where(my0, mup, 0.0), Lp), t * nb)
@@ -449,30 +492,52 @@ def _fwd_col(bp: _BandedProblem, state, t, use_kernel=True):
     return MA, MB, S
 
 
+def _fwd_col(bp: _BandedProblem, state, t, use_kernel=True):
+    """One forward step: process all nodes of (real) column t.  Writes the
+    two message columns in place."""
+    views = _seam_views(bp, state[2], t)
+    gD, masks = _fwd_gd(bp, state, t, views)
+    return _fwd_sends(bp, state, t, views, gD, masks, _fwd_y_src(bp, gD, t),
+                      use_kernel)
+
+
 def _msum(mask, x, acc_t):
     return torch.where(mask, x, 0.0).sum(dtype=acc_t)
 
 
-def _bwd_col(bp: _BandedProblem, state, t, use_kernel=True):
-    """One backward step with its lower-bound terms.  Writes the two message
-    columns in place.  -> (state, lb of this step)."""
+def _bwd_gd(bp: _BandedProblem, state, t, views):
+    """Backward step t's min-normalised scaled beliefs gD [K, L], seam
+    masks, and the step's node term of the bound."""
+    MA, MB, S = state
+    c = t + 1
+    D, _, masks = _beliefs(bp, MA, MB, c, t, S, views)
+    vminD = torch.min(D, dim=0).values
+    lb = _msum(bp.pix[c] > 0, vminD, acc_dtype(bp.dtype))
+    return bp.gamma[c][None, :] * (D - vminD[None, :]), masks, lb
+
+
+def _bwd_y_src(bp: _BandedProblem, gD, t):
+    """The B-tail y sends' source beliefs: M[UP]@(., 0, t-Bh+1) reads the
+    node (b, Bh-1, t-Bh+1) of the block above.  [K, Lp], lane2 layout."""
     spec = bp.spec
-    nb, Gx, Lp, Bh, Bw = spec.nb, spec.Gx, spec.Lp, spec.Bh, spec.Bw
-    ktol = (bp.kernel, bp.tol, use_kernel)
+    return _roll(_padLp(gD, spec.Lp),
+                 (t - 2 * spec.Bh + 2) * spec.nb + spec.Gx)
+
+
+def _bwd_sends(bp: _BandedProblem, state, t, views, gD, masks, lb, src_y,
+               use_kernel=True):
+    """Backward step t's six sends and their writes (in place), adding their
+    bound terms to ``lb``.  -> (state, lb of this step)."""
+    spec = bp.spec
+    nb, Lp, Bh, Bw = spec.nb, spec.Lp, spec.Bh, spec.Bw
     acc_t = acc_dtype(bp.dtype)
     MA, MB, S = state
     SxL, SxR, SyU, SyD = S
     c = t + 1
-    views = _seam_views(bp, S, t)
-    D, (_, Bc, Acm1, _), masks = _beliefs(bp, MA, MB, c, t, S, views)
+    Bc, Acm1 = MB[c], MA[c - 1]
     mx0, mxW, my0, myT = masks
-    vminD = torch.min(D, dim=0).values
-    lb = _msum(bp.pix[c] > 0, vminD, acc_t)
-    gD = bp.gamma[c][None, :] * (D - vminD[None, :])
-
     QA_c, D0_c, aA_c = bp.QA[c], bp.D0[c], bp.aA[c]
     gDt = torch.stack([gD, _supb(gD, nb)], 0)
-    src = _roll(_padLp(gD, Lp), (t - 2 * Bh + 2) * nb + Gx)
     # the step's six sends, each from the state before the step:
     sends = _sends([
         # interior head-sends, group B (LT, UP) at column c
@@ -487,8 +552,8 @@ def _bwd_col(bp: _BandedProblem, state, t, use_kernel=True):
         _tail(_roll(gD, 1), SxL, bp.PxL_q, bp.PxL_d0, bp.PxL_a),
         # B-tail y: M[UP]@(., 0, t-Bh+1) <- source (b, Bh-1, t-Bh+1),
         # target SyU at lane2 (t-Bh+1, b+Gx)
-        _tail(src, SyU, bp.PyU_q, bp.PyU_d0, bp.PyU_a),
-    ], *ktol)
+        _tail(src_y, SyU, bp.PyU_q, bp.PyU_d0, bp.PyU_a),
+    ], bp.kernel, bp.tol, use_kernel)
     (mh, vminh), (mt, vmint), (mrt, vrt), (mdn, vdn), (mlt, vlt), \
         (mup, vup) = sends
     vh, vt = bp.vB[c], bp.vA[c - 1]
@@ -505,6 +570,15 @@ def _bwd_col(bp: _BandedProblem, state, t, use_kernel=True):
     S = (torch.where(wxl, mlt, SxL), torch.where(mxW, mrt, SxR),
          torch.where(wyu, mup, SyU), torch.where(wyd, upd, SyD))
     return (MA, MB, S), lb
+
+
+def _bwd_col(bp: _BandedProblem, state, t, use_kernel=True):
+    """One backward step with its lower-bound terms.  Writes the two message
+    columns in place.  -> (state, lb of this step)."""
+    views = _seam_views(bp, state[2], t)
+    gD, masks, lb = _bwd_gd(bp, state, t, views)
+    return _bwd_sends(bp, state, t, views, gD, masks, lb,
+                      _bwd_y_src(bp, gD, t), use_kernel)
 
 
 def _sweep_steps(bp: _BandedProblem, state, use_kernel=True):
@@ -529,90 +603,109 @@ def sends_per_sweep(spec: BandedSpec) -> int:
     return 2 * spec.T
 
 
+def _decode_consts(bp: _BandedProblem):
+    """Seam problem data of the decode, brought to the lanes that read it."""
+    return (_roll(bp.PxL_q, -1), _roll(bp.PxL_d0, -1), _roll(bp.PxL_a, -1))
+
+
+def _down_seam(bp: _BandedProblem, sols, t):
+    """The decode's down-seam data at step t: the solutions of the nodes
+    below the yb = Bh-1 nodes and their (Q[UP], D0, alpha[UP]), at those
+    nodes' lanes.  Junk elsewhere; callers mask."""
+    spec = bp.spec
+    nb, Gx, L, Lp, Bh = spec.nb, spec.Gx, spec.L, spec.Lp, spec.Bh
+    c = t + 1
+    sol_d = _roll(_padLp(sols[c - (Bh - 1)], Lp), (Bh - 1) * nb - Gx)[..., :L]
+    sh = (2 * Bh - 2 - t) * nb - Gx
+    return (sol_d, _roll(bp.PyU_q, sh)[..., :L],
+            _roll(bp.PyU_d0, sh)[..., :L], _roll(bp.PyU_a, sh)[..., :L])
+
+
+def _decode_step(bp: _BandedProblem, state, t, sols, views, consts, down):
+    """One step of the greedy conditioned decode: the nodes of column t
+    condition on their *earlier* neighbours' solutions (interior left/up +
+    seam right/down; ``down`` from _down_seam) and add the messages of their
+    later edges.  -> (solutions [L], energy terms of the step)."""
+    spec = bp.spec
+    nb, Bh, Bw = spec.nb, spec.Bh, spec.Bw
+    acc_t = acc_dtype(bp.dtype)
+    tr = lambda diff: truncated_kernel(diff, bp.kernel, bp.tol)  # noqa: E731
+    MA, MB, S = state
+    SxL, SxR, _, _ = S
+    qln, d0ln_full, aln = consts
+    sol_d, qdn, d0dn_full, adn = down
+    c = t + 1
+    syu0, syd0, _, _ = views
+    pix_c = bp.pix[c]
+    D0c = bp.D0[c]
+    QB_c, aB_c, vB_c = bp.QB[c], bp.aB[c], bp.vB[c]
+    QA_c, aA_c = bp.QA[c], bp.aA[c]
+    QA_p, aA_p, vA_p = bp.QA[c - 1], bp.aA[c - 1], bp.vA[c - 1]
+    D0p = bp.D0[c - 1]
+    sol_prev = sols[c - 1]
+
+    mx0 = (bp.lane_yb == t) & bp.vSxL
+    mxW = (bp.lane_yb == t - (Bw - 1)) & bp.vSxR
+    my0 = (bp.lane_yb == 0) & bp.has_up & (pix_c > 0)
+    myT = (bp.lane_yb == Bh - 1) & bp.has_dn & (pix_c > 0)
+
+    Db = bp.theta[c]
+    # conditioned on interior earlier nbrs (left, up)
+    sol_l = sol_prev
+    sol_u = _sdownb(sol_prev, nb)
+    Q_sel = take_plane(QB_c[0], sol_l)
+    Db = Db + aB_c[0][None, :] * tr(Q_sel[None, :] - D0c) \
+        * vB_c[0][None, :]
+    Q_sel = take_plane(QB_c[1], sol_u)
+    Db = Db + aB_c[1][None, :] * tr(Q_sel[None, :] - D0c) \
+        * vB_c[1][None, :]
+    # out-edges at interior earlier nbrs: E(ln, RT), E(un, DN)
+    D0_sel = take_plane(D0p, sol_l)
+    Db = Db + aA_p[0][None, :] * tr(QA_p[0] - D0_sel[None, :]) \
+        * vA_p[0][None, :]
+    D0_un = take_plane(D0p, sol_prev)
+    t_un = aA_p[1][None, :] * tr(QA_p[1] - D0_un[None, :]) \
+        * vA_p[1][None, :]
+    Db = Db + _sdownb(t_un, nb)
+    # conditioned on seam earlier nbrs: right (xb = Bw-1 nodes)
+    sol_r = _roll(sols[c - (Bw - 1)], -1)
+    Q_sel = take_plane(QA_c[0], sol_r)
+    Db = Db + torch.where(mxW, aA_c[0] * tr(Q_sel[None] - D0c), 0.0)
+    d0ln = take_plane(d0ln_full, sol_r)
+    Db = Db + torch.where(mxW, aln * tr(qln - d0ln[None]), 0.0)
+    # conditioned on seam earlier nbrs: down (yb = Bh-1 nodes)
+    Q_sel = take_plane(QA_c[1], sol_d)
+    Db = Db + torch.where(myT, aA_c[1] * tr(Q_sel[None] - D0c), 0.0)
+    d0dn = take_plane(d0dn_full, sol_d)
+    Db = Db + torch.where(myT, adn * tr(qdn - d0dn[None]), 0.0)
+
+    # messages on later edges
+    Ac = MA[c]
+    Bn = MB[c + 1]
+    Di = Db + Ac[0] + Ac[1] + Bn[0] + _supb(Bn[1], nb)
+    Di = Di + torch.where(mx0, SxL + _roll(SxR, 1), 0.0)
+    Di = Di + torch.where(my0, syu0 + syd0, 0.0)
+
+    sol = torch.argmin(Di, dim=0)
+    return sol, _msum(pix_c > 0, take_plane(Db, sol), acc_t)
+
+
 def _decode_state(bp: _BandedProblem, state):
     """Greedy conditioned decode in banded order + exact energy.
 
-    Each node conditions on its *earlier* neighbours' solutions (interior
-    left/up + seam right/down) and adds the messages of its later edges.
-    Plain PyTorch, one Python step per column.  -> (labels [H, W] int32,
-    energy)."""
+    Plain PyTorch, one Python step per column (_decode_step).  -> (labels
+    [H, W] int32, energy)."""
     spec = bp.spec
-    T, nb, Gx, L, Lp = spec.T, spec.nb, spec.Gx, spec.L, spec.Lp
-    Bh, Bw = spec.Bh, spec.Bw
-    kernel, tol = bp.kernel, bp.tol
-    acc_t = acc_dtype(bp.dtype)
-    MA, MB, S = state
-    SxL, SxR, SyU, SyD = S
-    tr = lambda diff: truncated_kernel(diff, kernel, tol)
-
-    sols = torch.zeros((T + 2, L), dtype=torch.int64, device=bp.device)
-    E = torch.zeros((), dtype=acc_t, device=bp.device)
-    # seam problem data brought to the lanes that read it (fixed shifts)
-    qln = _roll(bp.PxL_q, -1)
-    d0ln_full = _roll(bp.PxL_d0, -1)
-    aln = _roll(bp.PxL_a, -1)
-    for t in range(T):
-        c = t + 1
-        syu0, syd0, _, _ = _seam_views(bp, S, t)
-        pix_c = bp.pix[c]
-        D0c = bp.D0[c]
-        QB_c, aB_c, vB_c = bp.QB[c], bp.aB[c], bp.vB[c]
-        QA_c, aA_c = bp.QA[c], bp.aA[c]
-        QA_p, aA_p, vA_p = bp.QA[c - 1], bp.aA[c - 1], bp.vA[c - 1]
-        D0p = bp.D0[c - 1]
-        sol_prev = sols[c - 1]
-
-        mx0 = (bp.lane_yb == t) & bp.vSxL
-        mxW = (bp.lane_yb == t - (Bw - 1)) & bp.vSxR
-        my0 = (bp.lane_yb == 0) & bp.has_up & (pix_c > 0)
-        myT = (bp.lane_yb == Bh - 1) & bp.has_dn & (pix_c > 0)
-
-        Db = bp.theta[c]
-        # conditioned on interior earlier nbrs (left, up)
-        sol_l = sol_prev
-        sol_u = _sdownb(sol_prev, nb)
-        Q_sel = take_plane(QB_c[0], sol_l)
-        Db = Db + aB_c[0][None, :] * tr(Q_sel[None, :] - D0c) \
-            * vB_c[0][None, :]
-        Q_sel = take_plane(QB_c[1], sol_u)
-        Db = Db + aB_c[1][None, :] * tr(Q_sel[None, :] - D0c) \
-            * vB_c[1][None, :]
-        # out-edges at interior earlier nbrs: E(ln, RT), E(un, DN)
-        D0_sel = take_plane(D0p, sol_l)
-        Db = Db + aA_p[0][None, :] * tr(QA_p[0] - D0_sel[None, :]) \
-            * vA_p[0][None, :]
-        D0_un = take_plane(D0p, sol_prev)
-        t_un = aA_p[1][None, :] * tr(QA_p[1] - D0_un[None, :]) \
-            * vA_p[1][None, :]
-        Db = Db + _sdownb(t_un, nb)
-        # conditioned on seam earlier nbrs: right (xb = Bw-1 nodes)
-        sol_r = _roll(sols[c - (Bw - 1)], -1)
-        Q_sel = take_plane(QA_c[0], sol_r)
-        Db = Db + torch.where(mxW, aA_c[0] * tr(Q_sel[None] - D0c), 0.0)
-        d0ln = take_plane(d0ln_full, sol_r)
-        Db = Db + torch.where(mxW, aln * tr(qln - d0ln[None]), 0.0)
-        # conditioned on seam earlier nbrs: down (yb = Bh-1 nodes)
-        sol_d = _roll(_padLp(sols[c - (Bh - 1)], Lp),
-                      (Bh - 1) * nb - Gx)[..., :L]
-        Q_sel = take_plane(QA_c[1], sol_d)
-        Db = Db + torch.where(myT, aA_c[1] * tr(Q_sel[None] - D0c), 0.0)
-        sh = (2 * Bh - 2 - t) * nb - Gx
-        qdn = _roll(bp.PyU_q, sh)[..., :L]
-        d0dn_full = _roll(bp.PyU_d0, sh)[..., :L]
-        adn = _roll(bp.PyU_a, sh)[..., :L]
-        d0dn = take_plane(d0dn_full, sol_d)
-        Db = Db + torch.where(myT, adn * tr(qdn - d0dn[None]), 0.0)
-
-        # messages on later edges
-        Ac = MA[c]
-        Bn = MB[c + 1]
-        Di = Db + Ac[0] + Ac[1] + Bn[0] + _supb(Bn[1], nb)
-        Di = Di + torch.where(mx0, SxL + _roll(SxR, 1), 0.0)
-        Di = Di + torch.where(my0, syu0 + syd0, 0.0)
-
-        sol = torch.argmin(Di, dim=0)
-        E = E + _msum(pix_c > 0, take_plane(Db, sol), acc_t)
-        sols[c] = sol
+    sols = torch.zeros((spec.T + 2, spec.L), dtype=torch.int64,
+                       device=bp.device)
+    E = torch.zeros((), dtype=acc_dtype(bp.dtype), device=bp.device)
+    consts = _decode_consts(bp)
+    for t in range(spec.T):
+        sol, e = _decode_step(bp, state, t, sols,
+                              _seam_views(bp, state[2], t), consts,
+                              _down_seam(bp, sols, t))
+        E = E + e
+        sols[t + 1] = sol
     labels = from_cols(sols.to(bp.dtype), spec).to(torch.int32)
     return labels, E
 

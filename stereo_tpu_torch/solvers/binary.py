@@ -42,18 +42,20 @@ class FusionResult(NamedTuple):
 
 
 def fusion_problem(current_planes, proposal_planes,
-                   normalize: tuple | None = None):
+                   normalize: tuple | None = None, x0: int = 0):
     """Build the K=2 label geometry for a fusion move.
 
     Returns (D0 [2,H,W], Q [4,2,H,W]): label 0 = current, 1 = proposal;
-    positions are the continuous disparities entering the pairwise terms."""
+    positions are the continuous disparities entering the pairwise terms.
+    ``x0``: the global column of column 0 (geometry.grid_points)."""
 
     def own(planes):
-        return normalized(geometry.own_disparity(planes), normalize)
+        return normalized(geometry.own_disparity(planes, x0), normalize)
 
     def nbr(planes, d):
         return normalized(
-            geometry.neighbor_plane_disparity(planes, d, fill=0.0), normalize)
+            geometry.neighbor_plane_disparity(planes, d, fill=0.0, x0=x0),
+            normalize)
 
     D0 = torch.stack([own(current_planes), own(proposal_planes)], dim=0)
     Q = torch.stack(
@@ -96,8 +98,10 @@ def _beliefs(theta0, theta1, M):
     return D0b, D1b
 
 
-def _k2_phase(theta0, theta1, M, V, gamma, valid, phase_mask, accumulate_lb):
-    """One checkerboard half-iteration at K=2 (mirrors trws._phase)."""
+def _k2_phase(theta0, theta1, M, V, gamma, valid, phase_mask, accumulate_lb,
+              own=None):
+    """One checkerboard half-iteration at K=2 (mirrors trws._phase; ``own``
+    limits the lb terms to a column shard's pixels)."""
     acc_t = acc_dtype(theta0.dtype)
     D0b, D1b = _beliefs(theta0, theta1, M)
 
@@ -106,7 +110,7 @@ def _k2_phase(theta0, theta1, M, V, gamma, valid, phase_mask, accumulate_lb):
         vminD = torch.minimum(D0b, D1b)
         D0b = D0b - vminD
         D1b = D1b - vminD
-        lb_nodes = trws._masked_sum(phase_mask, vminD)
+        lb_nodes = trws._masked_sum(trws._and_own(phase_mask, own), vminD)
 
     gD0 = gamma * D0b
     gD1 = gamma * D1b
@@ -131,7 +135,8 @@ def _k2_phase(theta0, theta1, M, V, gamma, valid, phase_mask, accumulate_lb):
         vmin = torch.minimum(msg0, msg1)
         newM.append((msg1 - msg0) * valid[d])
         if accumulate_lb:
-            lb_msgs = lb_msgs + trws._masked_sum(valid[d] > 0, vmin)
+            lb_msgs = lb_msgs + trws._masked_sum(
+                trws._and_own(valid[d] > 0, own), vmin)
     return torch.stack(newM, dim=0), lb_nodes + lb_msgs
 
 
@@ -164,13 +169,14 @@ def _edge_cost(Vd, zn, z):
     )
 
 
-def _k2_energy(z, theta0, theta1, V):
-    """Exact energy of a 0/1 labeling under the precomputed tables."""
-    acc_t = acc_dtype(theta0.dtype)
-    E = torch.where(z, theta1, theta0).sum(dtype=acc_t)
+def _k2_energy(z, theta0, theta1, V, own=None):
+    """Exact energy of a 0/1 labeling under the precomputed tables (with
+    ``own``, the part at a column shard's pixels: see trws.labeling_energy).
+    """
+    E = trws._own_sum(own, torch.where(z, theta1, theta0))
     for d in range(NUM_DIRS):
         zn = geometry.shift_from_neighbor(z, d, fill=False)
-        E = E + _edge_cost(V[d], zn, z).sum(dtype=acc_t)
+        E = E + trws._own_sum(own, _edge_cost(V[d], zn, z))
     return E
 
 
@@ -291,6 +297,29 @@ def _segment_verdicts_sorted(comp_flat, delta_flat, acc_t):
     return good
 
 
+def _flip_delta(z, theta0, theta1, V):
+    """Per-pixel energy delta of flipping ``z``'s pixels, every contribution
+    folded onto one z pixel (accumulated in promote(dtype, float32)):
+
+      - a z pixel owns its unary delta and all incident edge deltas,
+      - an edge whose head keeps but whose tail flips is pushed back to the
+        tail pixel (the only flipping endpoint) elementwise.
+
+    A pixel's value reads z two columns away."""
+    acc_t = acc_dtype(theta0.dtype)
+    zero = torch.zeros((), dtype=acc_t, device=z.device)
+    delta = torch.where(z, theta1 - theta0, zero.to(theta0.dtype)).to(acc_t)
+    for d in range(NUM_DIRS):
+        zn = geometry.shift_from_neighbor(z, d, fill=False)
+        dE = (_edge_cost(V[d], zn, z) - V[d, 0, 0]).to(acc_t)
+        delta = delta + torch.where(z, dE, zero)
+        push = torch.where(~z & zn, dE, zero)
+        # out[p + DIRS[d]] = push[p]: the inverse shift brings the delta to
+        # the tail pixel
+        delta = delta + geometry.shift_from_neighbor(push, OPP[d], fill=0.0)
+    return delta
+
+
 def accept_components(z, theta0, theta1, V, method: str | None = None):
     """Filter a decoded take-mask to its energy-improving components.
 
@@ -311,22 +340,7 @@ def accept_components(z, theta0, theta1, V, method: str | None = None):
     N = H * W
     comp = connected_components(z)
     acc_t = acc_dtype(theta0.dtype)
-    zero = torch.zeros((), dtype=acc_t, device=z.device)
-
-    # Fold every contribution into ONE per-pixel delta map owned by a z
-    # pixel:
-    #   - a z pixel owns its unary delta and all incident edge deltas,
-    #   - an edge whose head keeps but whose tail flips is pushed back to
-    #     the tail pixel (the only flipping endpoint) elementwise.
-    delta = torch.where(z, theta1 - theta0, zero.to(theta0.dtype)).to(acc_t)
-    for d in range(NUM_DIRS):
-        zn = geometry.shift_from_neighbor(z, d, fill=False)
-        dE = (_edge_cost(V[d], zn, z) - V[d, 0, 0]).to(acc_t)
-        delta = delta + torch.where(z, dE, zero)
-        push = torch.where(~z & zn, dE, zero)
-        # out[p + DIRS[d]] = push[p]: the inverse shift brings the delta to
-        # the tail pixel
-        delta = delta + geometry.shift_from_neighbor(push, OPP[d], fill=0.0)
+    delta = _flip_delta(z, theta0, theta1, V)
 
     if method == "sort":
         good_px = _segment_verdicts_sorted(comp.reshape(-1),

@@ -87,11 +87,24 @@ def _masked_sum(mask, x):
     return torch.where(mask, x, 0.0).sum(dtype=acc_dtype(x.dtype))
 
 
+def _own_sum(own, x):
+    """sum of x over the pixels a column shard owns (``own`` [H, W] bool),
+    or over every pixel when ``own`` is None (one device)."""
+    if own is None:
+        return x.sum(dtype=acc_dtype(x.dtype))
+    return _masked_sum(own, x)
+
+
+def _and_own(mask, own):
+    return mask if own is None else mask & own
+
+
 def _phase(theta, M, D0, Q, alphas, valid, gamma, cb, color, kernel, tol,
-           accumulate_lb, use_kernel=True):
+           accumulate_lb, use_kernel=True, own=None):
     """One half-iteration: update every edge's message from its ``color``
     endpoint.  Returns (new_M, lb_nodes, lb_msgs); the lb terms are zero
-    unless accumulate_lb (the white/backward phase)."""
+    unless accumulate_lb (the white/backward phase).  ``own`` ([H, W] bool
+    or None) limits the lb terms to the pixels a column shard owns."""
     dtype = theta.dtype
     acc_t = acc_dtype(dtype)
     Dall = _node_beliefs(theta, M)
@@ -101,7 +114,7 @@ def _phase(theta, M, D0, Q, alphas, valid, gamma, cb, color, kernel, tol,
     if accumulate_lb:
         vminD = torch.min(Dall, dim=0).values  # [H, W]
         Dall = Dall - vminD[None]
-        lb_nodes = _masked_sum(phase_mask, vminD)
+        lb_nodes = _masked_sum(_and_own(phase_mask, own), vminD)
 
     gD = gamma[None] * Dall  # [K, H, W]
     gDs = torch.stack([geometry.shift_from_neighbor(gD, d, fill=0.0)
@@ -112,7 +125,7 @@ def _phase(theta, M, D0, Q, alphas, valid, gamma, cb, color, kernel, tol,
                      tol, kernel)
     lb_msgs = torch.zeros((), dtype=acc_t, device=theta.device)
     if accumulate_lb:
-        lb_msgs = _masked_sum(valid > 0, vmins)
+        lb_msgs = _masked_sum(_and_own(valid > 0, own), vmins)
     return newM, lb_nodes, lb_msgs
 
 
@@ -120,8 +133,10 @@ def _phase_compact(theta2, M2, D02, Q2, alphas2, valid2, gamma2, pix2, s,
                    kernel, tol, accumulate_lb, use_kernel=True):
     """Compacted half-iteration (ops/checker.py layout): update every edge's
     message from its color-``s`` endpoint, each variant computed once on its
-    own half-grid.  M2/theta2/... are per-absolute-color pairs; returns
-    (new_M2, lb_nodes, lb_msgs)."""
+    own half-grid.  M2/theta2/... are per-color pairs (colours of the local
+    columns); returns (new_M2, lb_nodes, lb_msgs).  The lb terms count the
+    pixels where ``pix2`` is nonzero: the odd-H pad cells drop out, and so do
+    the halo columns of a column shard."""
     o = 1 - s
     dtype = theta2[s].dtype
     acc_t = acc_dtype(dtype)
@@ -152,18 +167,19 @@ def _phase_compact(theta2, M2, D02, Q2, alphas2, valid2, gamma2, pix2, s,
 
     lb_msgs = torch.zeros((), dtype=acc_t, device=dev)
     if accumulate_lb:
-        lb_msgs = (_masked_sum(valid2[s] > 0, vmins)
-                   + _masked_sum(valid2[o] > 0, vmino))
+        lb_msgs = (_masked_sum((valid2[s] > 0) & (pix2[s] > 0), vmins)
+                   + _masked_sum((valid2[o] > 0) & (pix2[o] > 0), vmino))
     new_M2 = (newMs, newMo) if s == 0 else (newMo, newMs)
     return new_M2, lb_nodes, lb_msgs
 
 
-def _decode(theta, M, D0, Q, alphas, valid, cb, kernel, tol):
+def _decode(theta, M, D0, Q, alphas, valid, cb, kernel, tol, own=None):
     """Greedy conditioned decode + exact energy of the decoded labeling.
 
     Blacks decode from beliefs (all buffers point into blacks after the white
     phase); whites decode conditioned on their black neighbors' solutions.
-    ``argmin`` ties resolve to the first minimum."""
+    ``argmin`` ties resolve to the first minimum.  ``own``: see
+    labeling_energy."""
     D_black = _node_beliefs(theta, M)
     sol_black = torch.argmin(D_black, dim=0).to(torch.int32)  # [H, W]
 
@@ -184,35 +200,46 @@ def _decode(theta, M, D0, Q, alphas, valid, cb, kernel, tol):
     sol_white = torch.argmin(cost, dim=0).to(torch.int32)
     labels = torch.where(cb == 0, sol_black, sol_white)
 
-    energy = labeling_energy(labels, theta, D0, Q, alphas, kernel, tol)
+    energy = labeling_energy(labels, theta, D0, Q, alphas, kernel, tol,
+                             own=own)
     return labels, energy
 
 
-def labeling_energy(labels, theta, D0, Q, alphas, kernel, tol):
+def labeling_energy(labels, theta, D0, Q, alphas, kernel, tol, own=None):
     """Exact MRF energy of an integer labeling [H, W] under the solver's
-    data."""
-    acc_t = acc_dtype(theta.dtype)
+    data; with ``own`` ([H, W] bool) the part of it at the pixels a column
+    shard owns (each pixel carries its unary and its in-edges)."""
     u = take_plane(theta, labels)
-    E = u.sum(dtype=acc_t)
+    E = _own_sum(own, u)
     D0_sel = take_plane(D0, labels)
     for d in range(NUM_DIRS):
         sol_n = geometry.shift_from_neighbor(labels, d, fill=0)
         Q_sel = take_plane(Q[d], sol_n)
         c = alphas[d] * truncated_kernel(Q_sel - D0_sel, kernel, tol)
-        E = E + c.sum(dtype=acc_t)
+        E = E + _own_sum(own, c)
     return E
 
 
 class _Problem:
     """The packed problem of one solve: masks, gammas and (when compact) the
-    per-colour half-grid copies, built once."""
+    per-colour half-grid copies, built once.
+
+    ``cols=(a, x0, x1, Wimg)`` builds one column shard of a ``Wimg``-wide
+    image (parallel/mesh.py): the tensors given are the image's columns
+    [a, a + W), the shard owns columns [x0, x1) and the rest are halo
+    columns copied from its neighbours.  The colours, the gammas and the
+    validity masks are those of the global columns, the lower-bound and
+    energy partials count the owned pixels only, and the compact layout
+    keeps the local column parity: global colour s is local colour
+    (s + a) % 2.  ``cols=None`` is the one-device problem."""
 
     def __init__(self, unary, positions, nbr_positions, alphas, kernel, tol,
-                 mode, compact, use_kernel):
+                 mode, compact, use_kernel, cols=None):
         if mode not in ("trws", "bp"):
             raise ValueError(f"unknown mode {mode!r}")
         K, H, W = unary.shape
         dev, dtype = unary.device, unary.dtype
+        a, x0, x1, Wimg = (0, 0, W, W) if cols is None else cols
         self.K, self.H, self.W = K, H, W
         self.kernel, self.tol, self.mode = kernel, tol, mode
         self.dtype, self.device = dtype, dev
@@ -224,18 +251,27 @@ class _Problem:
         self.theta, self.D0, self.Q, self.alphas = (
             unary.contiguous(), positions.contiguous(),
             nbr_positions.contiguous(), alphas.contiguous())
-        self.cb = checkerboard(H, W, device=dev)
+        span = slice(a, a + W)
+        self.cb = checkerboard(H, Wimg, device=dev)[:, span].contiguous()
         if mode == "bp":
             self.gamma = torch.ones((H, W), dtype=dtype, device=dev)
         else:
-            self.gamma = node_gamma(H, W, dtype, device=dev)
-        self.valid = default_weights(H, W, dtype, device=dev)
+            self.gamma = node_gamma(H, Wimg, dtype, device=dev)[:, span]
+        self.gamma = self.gamma.contiguous()
+        self.valid = default_weights(H, Wimg, dtype,
+                                     device=dev)[..., span].contiguous()
+        self.own = None
+        if cols is not None:
+            xs = torch.arange(a, a + W, device=dev)
+            self.own = ((xs >= x0) & (xs < x1))[None, :].expand(H, W)
+        self.c0 = a % 2  # local colour of global colour 0
         if self.compact:
             ch = self.to_compact
             self.theta2, self.D02, self.Q2, self.alphas2 = map(
                 ch, (self.theta, self.D0, self.Q, self.alphas))
             self.valid2, self.gamma2 = ch(self.valid), ch(self.gamma)
-            pix = torch.ones((H, W), dtype=dtype, device=dev)
+            pix = (torch.ones((H, W), dtype=dtype, device=dev)
+                   if self.own is None else self.own.to(dtype))
             self.pix2 = (*ch(pix), H)
 
     def to_compact(self, a):
@@ -258,28 +294,28 @@ class _Problem:
         """[4, K, H, W] message buffer from a state."""
         return self.to_full(state) if self.compact else state
 
-    def sweep(self, M):
-        """One forward + backward pass -> (M, lb of this sweep's phases)."""
+    def half(self, M, color: int):
+        """The phase of global colour ``color`` (0: black, forward; 1:
+        white, backward, with the bound) -> (M, its lb terms)."""
+        accumulate_lb = self.accumulate_lb and color == 1
         if self.compact:
             a = (self.theta2, M, self.D02, self.Q2, self.alphas2,
                  self.valid2, self.gamma2, self.pix2)
-            M, _, _ = _phase_compact(*a, 0, self.kernel, self.tol,
-                                     accumulate_lb=False,
-                                     use_kernel=self.use_kernel)
-            a = (self.theta2, M) + a[2:]
             M, lb_nodes, lb_msgs = _phase_compact(
-                *a, 1, self.kernel, self.tol,
-                accumulate_lb=self.accumulate_lb, use_kernel=self.use_kernel)
-            return M, lb_nodes + lb_msgs
-        M, _, _ = _phase(self.theta, M, self.D0, self.Q, self.alphas,
-                         self.valid, self.gamma, self.cb, 0, self.kernel,
-                         self.tol, accumulate_lb=False,
-                         use_kernel=self.use_kernel)
-        M, lb_nodes, lb_msgs = _phase(
-            self.theta, M, self.D0, self.Q, self.alphas, self.valid,
-            self.gamma, self.cb, 1, self.kernel, self.tol,
-            accumulate_lb=self.accumulate_lb, use_kernel=self.use_kernel)
+                *a, (color + self.c0) % 2, self.kernel, self.tol,
+                accumulate_lb=accumulate_lb, use_kernel=self.use_kernel)
+        else:
+            M, lb_nodes, lb_msgs = _phase(
+                self.theta, M, self.D0, self.Q, self.alphas, self.valid,
+                self.gamma, self.cb, color, self.kernel, self.tol,
+                accumulate_lb=accumulate_lb, use_kernel=self.use_kernel,
+                own=self.own)
         return M, lb_nodes + lb_msgs
+
+    def sweep(self, M):
+        """One forward + backward pass -> (M, lb of this sweep's phases)."""
+        M, _ = self.half(M, 0)
+        return self.half(M, 1)
 
     def check(self, M, lb_sweep):
         """Lower bound and greedy decode of a state -> (energy, lb, labels)."""
@@ -288,13 +324,14 @@ class _Problem:
             # blacks contribute their belief minima to the bound (they have
             # no backward edges)
             D_black = _node_beliefs(self.theta, Mf)
-            lb = lb_sweep + _masked_sum(self.cb == 0,
+            lb = lb_sweep + _masked_sum(_and_own(self.cb == 0, self.own),
                                         torch.min(D_black, dim=0).values)
         else:
             lb = torch.zeros((), dtype=acc_dtype(self.dtype),
                              device=self.device)
         labels, energy = _decode(self.theta, Mf, self.D0, self.Q, self.alphas,
-                                 self.valid, self.cb, self.kernel, self.tol)
+                                 self.valid, self.cb, self.kernel, self.tol,
+                                 own=self.own)
         return energy, lb, labels
 
 

@@ -570,3 +570,76 @@ def test_checkpoint_resume_on_card_bitwise(cuda, tmp_path):
     assert torch.equal(resumed.messages, full.messages)
     assert float(resumed.energy) == float(full.energy)
     assert float(resumed.lower_bound) == float(full.lower_bound)
+
+
+# ------------------------------------------- the distribution layer
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("n", [2, 3])
+def test_column_shards_on_one_card(cuda, n, compact):
+    """n column shards on one card through kernel 1 (compact) or kernel 2:
+    labels and messages bit for bit the one-device solve's, 2 launches a
+    sweep a shard."""
+    from stereo_tpu_torch.parallel import mesh as t_mesh
+
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.synthetic_problem(15, 37, 66)]
+    kw = dict(kernel=1, tol=0.5, maxiter=6, max_relgap=0.0, compact=compact)
+    ref = t_trws.solve(*prob, **kw)
+    m = t_mesh.make_mesh(n, devices=[cuda] * n)
+    wrapper = (t_pk.phase_messages_compact if compact
+               else t_pk.phase_messages)
+    wrapper.launches = 0
+    res = t_mesh.sharded_solve(m, *prob, **kw)
+    assert wrapper.launches == 2 * 6 * n
+    assert torch.equal(res.labels, ref.labels)
+    assert torch.equal(res.messages, ref.messages)
+    assert float(res.energy) == pytest.approx(float(ref.energy), rel=1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_fusion_step_shards_on_one_card(cuda, n):
+    """A fusion move over n column shards of one card, float32: the take
+    mask bit for bit the one-device move's (sorted verdicts)."""
+    from stereo_tpu_torch import energy as t_energy
+    from stereo_tpu_torch.parallel import fusion_dist, mesh as t_mesh
+    from stereo_tpu_torch.solvers import binary as t_binary
+
+    H, W = 40, 66
+    cur, prop = (torch.as_tensor(testing.random_planes(s, H, W),
+                                 dtype=torch.float32, device=cuda)
+                 for s in (n, n + 10))
+    rng = np.random.default_rng(n)
+    U0, U1 = (torch.as_tensor(rng.uniform(0, 3, (H, W)), dtype=torch.float32,
+                              device=cuda) for _ in range(2))
+    w = t_energy.default_weights(H, W, dtype=torch.float32, device=cuda)
+    D0, Q = t_binary.fusion_problem(cur, prop)
+    kw = dict(kernel=1, tol=0.9, maxiter=20, max_relgap=0.0)
+    ref = t_binary.binary_fuse(U0, U1, D0, Q, w, **kw, accept_method="sort")
+    m = t_mesh.make_mesh(n, devices=[cuda] * n)
+    _, take, _, _ = fusion_dist.sharded_fusion_step(m, cur, prop, U0, U1, w,
+                                                    **kw)
+    assert torch.equal(take, ref.take)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_banded_stripes_on_one_card(cuda, n):
+    """n gy stripes on one card, one launch of the column send kernel a
+    step a stripe: labels and messages bit for bit the one-device steps
+    path's."""
+    from stereo_tpu_torch.solvers import banded_dist
+
+    H, W, Bh, Bw = 48, 40, 8, 8
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.synthetic_problem(15, H, W)]
+    run = t_banded.BandedRun(*prob, kernel=1, tol=0.5, Bh=Bh, Bw=Bw,
+                             sweep="steps")
+    st, _, _, bestL = run.run(run.init_state(), 2, 2)
+    mesh = banded_dist.make_y_mesh(n, devices=[cuda] * n)
+    t_mp.minplus_send.launches = 0
+    res = banded_dist.sharded_banded_run(mesh, *prob, kernel=1, tol=0.5,
+                                         Bh=Bh, Bw=Bw, sweeps=2,
+                                         decode_every=2)
+    spec = t_banded.BandedSpec(H // n, W, Bh, Bw)
+    assert t_mp.minplus_send.launches == 2 * 2 * spec.T * n
+    assert torch.equal(res.labels, bestL)
+    assert torch.equal(res.messages, run.messages(st))

@@ -25,9 +25,11 @@ FILES = sorted(
        os.path.join(ROOT, "examples", "run_second_order_torch.py"),
        os.path.join(ROOT, "examples", "run_render_torch.py"),
        os.path.join(ROOT, "examples", "run_full_sweep_torch.py"),
+       os.path.join(ROOT, "examples", "run_batch_torch.py"),
        os.path.join(ROOT, "tools", "profile_main_path.py"),
        os.path.join(ROOT, "tools", "time_banded_kernel.py"),
-       os.path.join(ROOT, "tools", "profile_segpln.py")])
+       os.path.join(ROOT, "tools", "profile_segpln.py"),
+       os.path.join(ROOT, "tools", "check_multicard.py")])
 
 
 def _imports(path):
@@ -77,7 +79,15 @@ def test_files_found():
                  "examples/run_simultaneous_torch.py",
                  "examples/run_second_order_torch.py",
                  "examples/run_render_torch.py",
-                 "examples/run_full_sweep_torch.py", "chip_smoke.py"):
+                 "examples/run_full_sweep_torch.py", "chip_smoke.py",
+                 "stereo_tpu_torch/parallel/mesh.py",
+                 "stereo_tpu_torch/parallel/batch.py",
+                 "stereo_tpu_torch/parallel/fusion_dist.py",
+                 "stereo_tpu_torch/parallel/multihost.py",
+                 "stereo_tpu_torch/solvers/banded_dist.py",
+                 "stereo_tpu_torch/entry.py",
+                 "examples/run_batch_torch.py",
+                 "tools/check_multicard.py"):
         assert must in names
     assert all(os.path.exists(f) for f in FILES)
 
@@ -168,6 +178,18 @@ def test_default_device_raises_without_card():
         render_edgemodes([im0, im1], P, np.arange(3.0, -1, -1), (12, 16))
     with pytest.raises(RuntimeError, match="cuda"):
         render_occl([im0, im1], P, np.arange(3.0, -1, -1), (12, 16))
+    from stereo_tpu_torch import entry
+    from stereo_tpu_torch.parallel import mesh as mesh_mod
+    from stereo_tpu_torch.solvers import banded_dist
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh_mod.make_mesh(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        banded_dist.make_y_mesh(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        entry.entry()
     # asked for explicitly, the CPU is fine
     assert geometry.fronto_parallel(4, 5, 1.0, device="cpu").shape == (4, 4, 5)
 
@@ -178,7 +200,8 @@ def test_default_device_raises_without_card():
     ("run_second_order_torch", ["--pair", "synth", "--crop", "0", "8", "0",
                                 "8"]),
     ("run_render_torch", ["--pair", "synth", "--crop", "0", "8", "0", "8"]),
-    ("run_full_sweep_torch", ["--pairs", "synth"])])
+    ("run_full_sweep_torch", ["--pairs", "synth"]),
+    ("run_batch_torch", ["--pairs", "synth", "synth"])])
 def test_examples_raise_without_card(name, args, monkeypatch):
     """The examples run on the card by default and raise without one; they
     never carry on on the CPU unless asked."""
