@@ -11,7 +11,9 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      37x53 and 375x450 (odd H, ragged edges, border pixels with valid =
      alpha = 0), and at 37x53 K in {3, 17, 41, 97, 202} (beyond one pass
      of a block's targets), alpha < 0 on a third of the pixels, and tol in
-     {1e-3, 1e6}; the column send for K in {2, 8, 15, 79, 300} x kernel x L
+     {1e-3, 1e6}, all of it again with bfloat16 message storage (at
+     375x450 K = 79 only) and with float16 at 37x53, K = 79 and 202; the
+     column send for K in {2, 8, 15, 79, 300} x kernel x L
      in {53, 1536} x batch in {1, 2}, and K = 1000 (L = 53 and L = 64,000,
      more tiles than resident blocks), and gathered in one launch as a
      solver step gives it (six problems of a banded step at teddy's
@@ -92,6 +94,14 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      sweeps straight against 4, an async checkpoint of the messages, a load
      and 4 more from the loaded messages; labels, energy, bound and
      messages bit for bit, 32 launches counted (``checkpoint_path``);
+ 16b. (run after 16, and again in 13. on baby2's K = 15 problem) narrow
+     message storage: trws.solve and TRWSRun.run with bfloat16 messages,
+     16 sweeps and one decode each, through kernel 1, and 4 sweeps of
+     solve(compact=False) through kernel 2, each against its plain version
+     on the card (messages bit for bit, labels equal, E and lb within
+     1e-6), lb <= E, lb within 3% of float32 storage's (E too on teddy;
+     on baby2 printed: its bf16 decodes stay far above float32's); the ms
+     a sweep of both storage types in turns (``message_dtype_path``);
  16a. (run after 16, on the main path's model after a restart) the
      distribution layer (parallel/*, solvers/banded_dist.py): the K = 79
      problem's sharded_solve over 2 and 3 column shards of the card, 8
@@ -124,7 +134,9 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      K = 15 and K = 202, beside their plain versions; the column send also
      as the one launch of a banded and of a wavefront step and of the two
      phases of a scanline row, and a whole scanline sweep at K = 79 and
-     K = 15), and prints the ``{"kernels": [...]}`` line.
+     K = 15; the phase kernels also with bfloat16 and float16 message
+     storage, and at baby2's K = 15 shape, ``phase_k15``), and prints the
+     ``{"kernels": [...]}`` line.
 
 Every phase prints one JSON line; any failed check raises, so the exit code
 is non-zero and the last line is never printed.  The last line is
@@ -303,6 +315,14 @@ RENDER_PAIR, RENDER_CROP, RENDER_LEVELS = "teddy", (120, 240, 120, 280), 9
 # utils/checkpoint on the main path's K = 79 checkerboard problem (kernel
 # 1): CKPT_SWEEPS straight against half, a checkpoint, a load and half
 CKPT_SWEEPS, CKPT_CHECK_EVERY = 8, 4
+# narrow (bfloat16) message storage on the main path's K = 79 problem and on
+# baby2's K = 15: MD_SWEEPS sweeps of solve and of TRWSRun.run through
+# kernel 1, MD_FULL_SWEEPS of solve(compact=False) through kernel 2; lb (and
+# on teddy E) within MD_DRIFT of float32 storage (the JAX package's own
+# bound), the kernels within MD_RTOL of the plain versions; MD_ROUNDS
+# rounds of a sweep of each storage type in turns
+MD_SWEEPS, MD_FULL_SWEEPS, MD_ROUNDS = 16, 4, 3
+MD_DRIFT, MD_RTOL = 0.03, 1e-6
 # the distribution layer on the main path's K = 79 problem: the sharded
 # checkerboard solve over PAR_SHARDS column shards of the one card (kernel
 # 1), PAR_FULL_SWEEPS of it on the full grid (kernel 2), one fusion move over
@@ -386,24 +406,34 @@ def phase_kernels_vs_plain() -> dict:
     cases += banded_sweep_vs_plain(err) + pair_vs_plain(err)
     cases += wavefront_sweep_vs_plain(err)
     say("kernels_vs_plain", cases=cases,
-        tolerance="bitwise (float32); the fused sweeps' lower bounds rtol "
-                  "1e-5", max_abs_err=err)
+        tolerance="bitwise (float32; the phase kernels also with bfloat16 "
+                  "and float16 message storage); the fused sweeps' lower "
+                  "bounds rtol 1e-5", max_abs_err=err)
     return err
+
+
+def narrow(args: list, names, m_dtype) -> list:
+    """Phase arguments (in the order of ``names``) with the messages stored
+    in ``m_dtype``."""
+    return [a.to(m_dtype) if n.startswith("M") else a
+            for n, a in zip(names, args)]
 
 
 def phase_case(err: dict, K: int, H: int, W: int, kernel: int, tol: float,
                seed: int, full_seed: int | None = None,
-               negative: bool = False) -> int:
+               negative: bool = False, m_dtype=torch.float32) -> int:
     """Both phase kernels against their plain versions on one problem, bit
     for bit: the compact one on the half-grid of H x W (inputs from
     ``seed``), the full-grid one on H x W with either colour as the source
     (from ``full_seed`` + colour; ``full_seed`` defaults to ``seed``).
-    ``negative``: a < 0 on a random third of the pixels."""
-    what = f"K={K}, {H}x{W}, kernel={kernel}, tol={tol}, negative={negative}"
+    ``negative``: a < 0 on a random third of the pixels; ``m_dtype``: the
+    messages' storage."""
+    what = (f"K={K}, {H}x{W}, kernel={kernel}, tol={tol}, negative="
+            f"{negative}, storage={m_dtype}")
     inp = testing.phase_inputs(seed, K, -(-H // 2), W)
     if negative:
         inp = testing.negate_alphas(inp, seed)
-    args = on_card(inp, COMPACT_ARGS)
+    args = narrow(on_card(inp, COMPACT_ARGS), COMPACT_ARGS, m_dtype)
     got = phase_kernel.phase_messages_compact(*args, tol, kernel)
     torch.cuda.synchronize()
     ref = phase_kernel.phase_messages_compact_ref(*args, tol, kernel)
@@ -417,7 +447,7 @@ def phase_case(err: dict, K: int, H: int, W: int, kernel: int, tol: float,
         inp = testing.phase_inputs_full(full_seed + color, K, H, W, color)
         if negative:
             inp = testing.negate_alphas(inp, full_seed + color)
-        args = on_card(inp, FULL_ARGS)
+        args = narrow(on_card(inp, FULL_ARGS), FULL_ARGS, m_dtype)
         got = phase_kernel.phase_messages(*args, tol, kernel)
         torch.cuda.synchronize()
         ref = phase_kernel.phase_messages_ref(*args, tol, kernel)
@@ -436,24 +466,17 @@ def phase_vs_plain(err: dict) -> int:
     block or of a staged chunk, and K beyond one pass of a block's targets),
     a < 0 on a third of the pixels (the plain term's branch) and tol in
     PHASE_TOL (almost every term truncated, none) at 37x53; and a random,
-    non-checkerboard mask for the full-grid kernel (divergent warps)."""
-    cases = 0
-    for (H, W) in ((37, 53), (375, 450)):
-        for K in (2, 8, 15, 79):
-            for kernel in (1, 2):
-                cases += phase_case(err, K, H, W, kernel,
-                                    1.1 if kernel == 1 else 0.9, K + H,
-                                    full_seed=K + W)
-        torch.cuda.empty_cache()
+    non-checkerboard mask for the full-grid kernel (divergent warps).  Then
+    the same with bfloat16 message storage (K in {2, 8, 15, 79} at 37x53,
+    K = 79 at 375x450, PHASE_K, a < 0, PHASE_TOL) and with float16 at
+    37x53, K = 79 and 202."""
+    cases = phase_vs_plain_storage(err, torch.float32)
+    cases += phase_vs_plain_storage(err, torch.bfloat16)
     for kernel in (1, 2):
-        tol = 1.1 if kernel == 1 else 0.9
-        for K in PHASE_K:
-            cases += phase_case(err, K, 37, 53, kernel, tol, K + kernel)
-        for K in (17, 79):
-            cases += phase_case(err, K, 37, 53, kernel, tol, K + 7,
-                                negative=True)
-            for t in PHASE_TOL:
-                cases += phase_case(err, K, 37, 53, kernel, t, K + 11)
+        for K in (79, 202):
+            cases += phase_case(err, K, 37, 53, kernel,
+                                1.1 if kernel == 1 else 0.9, K + 3,
+                                m_dtype=torch.float16)
     torch.cuda.empty_cache()
     # a non-checkerboard mask (divergent warps) must still be right
     inp = testing.phase_inputs_full(5, 15, 37, 53)
@@ -465,6 +488,35 @@ def phase_vs_plain(err: dict) -> int:
     check(all(torch.equal(g, r) for g, r in zip(got, ref)),
           "full-grid kernel != plain version (random mask)")
     return cases + 1
+
+
+def phase_vs_plain_storage(err: dict, m_dtype) -> int:
+    """``phase_vs_plain``'s problems with the messages stored in
+    ``m_dtype``: K in {2, 8, 15, 79} at 37x53 and 375x450 (float32; narrow
+    storage K = 79 only there), PHASE_K, a < 0 and PHASE_TOL at 37x53."""
+    cases = 0
+    for (H, W) in ((37, 53), (375, 450)):
+        for K in (2, 8, 15, 79):
+            if (H, W) != (37, 53) and K != 79 and m_dtype != torch.float32:
+                continue
+            for kernel in (1, 2):
+                cases += phase_case(err, K, H, W, kernel,
+                                    1.1 if kernel == 1 else 0.9, K + H,
+                                    full_seed=K + W, m_dtype=m_dtype)
+        torch.cuda.empty_cache()
+    for kernel in (1, 2):
+        tol = 1.1 if kernel == 1 else 0.9
+        for K in PHASE_K:
+            cases += phase_case(err, K, 37, 53, kernel, tol, K + kernel,
+                                m_dtype=m_dtype)
+        for K in (17, 79):
+            cases += phase_case(err, K, 37, 53, kernel, tol, K + 7,
+                                negative=True, m_dtype=m_dtype)
+            for t in PHASE_TOL:
+                cases += phase_case(err, K, 37, 53, kernel, t, K + 11,
+                                    m_dtype=m_dtype)
+    torch.cuda.empty_cache()
+    return cases
 
 
 def pair_vs_plain(err: dict) -> int:
@@ -1489,14 +1541,17 @@ def schedule_vs_plain(dm, props, schedule: str, sweeps: int,
                 plain_seconds=tp)
 
 
-def phase_simultaneous_path() -> dict:
+def phase_simultaneous_path(smi: str) -> tuple:
     """examples/run_simultaneous_torch.py at full size, cut in depth:
     DispMapGlobalStereo on baby2, 14 SegPln proposals fused to convergence,
     a restart, then simultaneous fusion at K = 15 on the banded schedule
     (SIM_SWEEPS sweeps, a decode every SIM_CHECK_EVERY); the first sweeps
     again through kernel 5's plain version, and a few sweeps on the
     checkerboard (kernel 1) and wavefront (kernel 6) schedules against
-    theirs.  Returns the launches of kernels 1, 5 and 6 on this path."""
+    theirs; then narrow message storage on the K = 15 problem
+    (``phase_message_dtype_path``).  Returns the launches of kernels 1, 5
+    and 6 on this path, the host solvers' lines and the launches of the
+    narrow-storage runs."""
     dm, t_setup = make_global_model(SIM_PAIR)
     H, W = dm.sz
     check((H, W) == SIM_SIZE, f"baby2 is {(H, W)}")
@@ -1566,16 +1621,31 @@ def phase_simultaneous_path() -> dict:
     runs["scanline"] = schedule_vs_plain(
         dm, props, "scanline", SIM_OTHER_SWEEPS, "minplus_send", 4 * H)
     say("simultaneous_path_vs_plain", K=len(props) + 1, **runs)
+    narrow_counts = phase_message_dtype_path(dm, props, SIM_PAIR, smi,
+                                             gate_energy=False)
     host = dict(global_moves=host_global_moves(dm, props),
                 trws_host=serial_trws_sweeps(dm, props))
     del dm, props
     torch.cuda.empty_cache()
-    return {"sweep_banded": counts["sweep_banded"],
-            "phase_messages_compact":
-                runs["checkerboard"]["launches"]["phase_messages_compact"],
-            "sweep_wavefront":
-                runs["wavefront"]["launches"]["sweep_wavefront"],
-            "minplus_send": runs["scanline"]["launches"]["minplus_send"]}, host
+    launches = {
+        "sweep_banded": counts["sweep_banded"],
+        "phase_messages_compact":
+            runs["checkerboard"]["launches"]["phase_messages_compact"],
+        "sweep_wavefront": runs["wavefront"]["launches"]["sweep_wavefront"],
+        "minplus_send": runs["scanline"]["launches"]["minplus_send"]}
+    return launches, host, narrow_counts
+
+
+def model_problem(dm, proposals):
+    """The TRW-S problem a model's simultaneous fusion solves over
+    ``proposals`` (the incumbent joins as the last label): the positional
+    arguments of trws.solve, and its kernel and tol."""
+    stack = torch.stack([dm._tensor(p) for p in proposals]
+                        + [dm.assignment], 0)
+    unary = torch.stack([dm.unary_map(p) for p in stack], 0)
+    D0, Q = base_model._positions(stack, dm.normalize)
+    return ((unary, D0, Q, dm.smooth_weights),
+            dict(kernel=dm.smoothness_kernel, tol=dm.tol))
 
 
 # ----------------------- 17. utils/checkpoint: resume through kernel 1
@@ -1585,13 +1655,8 @@ def phase_checkpoint_path(dm, proposals) -> dict:
     them, an async checkpoint of the messages, a load and the other half
     from the loaded messages (max_relgap 0).  Labels, energy, bound and
     messages must be equal bit for bit.  Returns the launch counts."""
-    stack = torch.stack([dm._tensor(p) for p in proposals]
-                        + [dm.assignment], 0)
-    unary = torch.stack([dm.unary_map(p) for p in stack], 0)
-    D0, Q = base_model._positions(stack, dm.normalize)
-    args = (unary, D0, Q, dm.smooth_weights)
-    kw = dict(kernel=dm.smoothness_kernel, tol=dm.tol, max_relgap=0.0,
-              check_every=CKPT_CHECK_EVERY)
+    args, kw = model_problem(dm, proposals)
+    kw.update(max_relgap=0.0, check_every=CKPT_CHECK_EVERY)
     half = CKPT_SWEEPS // 2
     reset_counts()
     t0 = time.perf_counter()
@@ -1629,11 +1694,132 @@ def phase_checkpoint_path(dm, proposals) -> dict:
     check(counts["phase_messages_compact"] == expect,
           f"{counts['phase_messages_compact']} launches of the compact phase "
           f"kernel, expected {expect}")
-    say("checkpoint_path", K=len(stack), size=list(dm.sz),
+    say("checkpoint_path", K=args[0].shape[0], size=list(dm.sz),
         sweeps=CKPT_SWEEPS, resumed_at=half, energy=float(full.energy),
         lower_bound=float(full.lower_bound), bit_for_bit=True,
         checkpoint_bytes=nbytes, save_load_seconds=t_ckpt,
         solve_seconds=t_solve, launches=counts)
+    return counts
+
+
+# ------------------ 16b. narrow message storage (message_dtype)
+def sweep_ms_in_turns(args, kw, rounds: int, sweeps: int) -> dict:
+    """ms a checkerboard sweep (compact, kernel 1) with float32 and with
+    bfloat16 message storage on one problem, in turns: ``rounds`` rounds of
+    ``sweeps`` sweeps between two CUDA events each, the order reversed
+    every other round; the median of each."""
+    runs = {dt: trws.TRWSRun(*args, **kw, message_dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    states = {dt: r.init_state() for dt, r in runs.items()}
+    times = {dt: [] for dt in runs}
+    for r in range(rounds):
+        for dt in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            p, M = runs[dt]._p, states[dt]
+            p.sweep(M)  # warm: the allocator's blocks for this storage
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(sweeps):
+                M, _ = p.sweep(M)
+            b.record()
+            torch.cuda.synchronize()
+            states[dt] = M
+            times[dt].append(a.elapsed_time(b) / sweeps)
+    return {str(dt).removeprefix("torch."): statistics.median(ms)
+            for dt, ms in times.items()}
+
+
+def phase_message_dtype_path(dm, proposals, pair: str, smi: str,
+                             gate_energy: bool = True) -> dict:
+    """Narrow message storage on a model's TRW-S problem over its
+    proposals: trws.solve and TRWSRun.run with bfloat16 messages, MD_SWEEPS
+    sweeps and one decode each, through kernel 1, and MD_FULL_SWEEPS on the
+    full grid through kernel 2; each against its plain version on the card
+    (messages bit for bit, labels equal, E and lb within MD_RTOL), lb <= E,
+    and lb within MD_DRIFT of the same solve with float32 storage, E too
+    where ``gate_energy``; then the ms a sweep of both storage types in
+    turns.  Returns the launches of the bfloat16 runs.
+
+    ``gate_energy=False`` is for baby2's K = 15 problem, where bfloat16
+    storage's decodes stay far above float32's while its bound stays
+    within 1% (E 83,482 against 40,209 after 1,024 sweeps,
+    tools/measure_message_dtype.py): a property of the storage type, whose
+    arithmetic is the JAX package's bit for bit, not of the kernels; its
+    drift is printed."""
+    args, kw = model_problem(dm, proposals)
+    K = args[0].shape[0]
+    bf16 = torch.bfloat16
+    kw_solve = dict(kw, max_relgap=0.0, maxiter=MD_SWEEPS,
+                    check_every=MD_SWEEPS)
+    kw_full = dict(kw_solve, maxiter=MD_FULL_SWEEPS,
+                   check_every=MD_FULL_SWEEPS, compact=False)
+    f32 = trws.solve(*args, **kw_solve)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = trws.solve(*args, **kw_solve, message_dtype=bf16)
+    run = trws.TRWSRun(*args, **kw, message_dtype=bf16)
+    state, e_run, lb_run, labels_run = run.run(run.init_state(), MD_SWEEPS)
+    full = trws.solve(*args, **kw_full, message_dtype=bf16)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    counts = read_counts()
+    plain = trws.solve(*args, **kw_solve, message_dtype=bf16,
+                       use_kernel=False)
+    plain_full = trws.solve(*args, **kw_full, message_dtype=bf16,
+                            use_kernel=False)
+    torch.cuda.synchronize()
+
+    def close(a, b, rtol) -> bool:
+        a, b = float(a), float(b)
+        return abs(a - b) <= rtol * abs(b)
+
+    what = f"{pair} K = {K}, bfloat16 storage"
+    for name, k, p in (("solve", got, plain), ("solve(compact=False)", full,
+                                               plain_full)):
+        check(k.messages.dtype == bf16 and p.messages.dtype == bf16,
+              f"{what}: {name} messages are {k.messages.dtype}")
+        check(torch.equal(k.messages, p.messages)
+              and torch.equal(k.labels, p.labels)
+              and close(k.energy, p.energy, MD_RTOL)
+              and close(k.lower_bound, p.lower_bound, MD_RTOL),
+              f"{what}: {name} through the kernel != its plain version: E "
+              f"{float(k.energy)} vs {float(p.energy)}, lb "
+              f"{float(k.lower_bound)} vs {float(p.lower_bound)}")
+        check(float(k.lower_bound) <= float(k.energy),
+              f"{what}: {name} lb {float(k.lower_bound)} > E "
+              f"{float(k.energy)}")
+    check(torch.equal(run.messages(state), got.messages)
+          and torch.equal(labels_run, got.labels)
+          and close(e_run, got.energy, MD_RTOL)
+          and close(lb_run, got.lower_bound, MD_RTOL),
+          f"{what}: TRWSRun.run differs from solve")
+    drift = {k: abs(float(a) - float(b)) / abs(float(b)) for k, a, b in (
+        ("energy", got.energy, f32.energy),
+        ("lower_bound", got.lower_bound, f32.lower_bound))}
+    check(drift["lower_bound"] <= MD_DRIFT
+          and (drift["energy"] <= MD_DRIFT or not gate_energy),
+          f"{what}: E {float(got.energy)}, lb {float(got.lower_bound)} "
+          f"drift {drift} from float32 storage's {float(f32.energy)}, "
+          f"{float(f32.lower_bound)} (bound {MD_DRIFT}, E gated: "
+          f"{gate_energy})")
+    expect = {"phase_messages_compact": 4 * MD_SWEEPS,
+              "phase_messages": 2 * MD_FULL_SWEEPS}
+    check(all(counts[n] == c for n, c in expect.items()),
+          f"{what}: launches {counts}, expected {expect}")
+    ms = sweep_ms_in_turns(args, kw, MD_ROUNDS, MD_SWEEPS)
+    say("message_dtype_path", pair=pair, K=K, size=list(dm.sz), card=smi,
+        sweeps=MD_SWEEPS, full_grid_sweeps=MD_FULL_SWEEPS,
+        energy=float(got.energy), lower_bound=float(got.lower_bound),
+        energy_f32=float(f32.energy), lower_bound_f32=float(f32.lower_bound),
+        drift=drift, energy_drift_gated=gate_energy,
+        energy_full_grid=float(full.energy),
+        lower_bound_full_grid=float(full.lower_bound),
+        bit_for_bit="messages and labels, kernel vs plain, solve vs "
+                    "TRWSRun.run", kernel_seconds=t_kernel,
+        ms_per_sweep_in_turns=ms, launches=counts)
+    del f32, got, run, state, full, plain, plain_full, args
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2157,12 +2343,6 @@ def bound_of(n_bytes: float, n_ops: float) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def bounds(planes: int, pixels: int, K: int, sends_px: int) -> dict:
-    """Least time for the work: bytes moved once at the memory rate vs
-    K^2 min-plus steps per send and pixel at the float32 rate."""
-    return bound_of(planes * pixels * 4, K * K * sends_px * OPS_PER_STEP)
-
-
 def send_bounds(B: int, K: int, L: int) -> dict:
     """Least time of one column send: (4 K + 2) rows of B x L float32 moved
     once against K^2 min-plus steps per lane."""
@@ -2325,33 +2505,52 @@ def wavefront_sweep_repeatable(K: int = 79, H: int = 375, W: int = 450):
 
 
 def phase_problems(K: int, H: int, W: int):
-    """(name, arguments on the card, shape, planes moved, pixels, sends) of
-    the two phase kernels at K labels on an H x W image: the compact one on
-    its half-grid (8 sends over ceil(H / 2) x W pixels), the full-grid one on
-    H x W (one send per direction and pixel)."""
+    """(name, arguments on the card, their names, shape, bytes moved a pixel
+    with float32 and with 2-byte message storage, pixels, sends) of the two
+    phase kernels at K labels on an H x W image: the compact one on its
+    half-grid (8 sends over ceil(H / 2) x W pixels; (31 K + 24) float32
+    planes, of which the 16 K message planes read and written halve in
+    2-byte storage), the full-grid one on H x W (one send per direction and
+    pixel; (18 K + 13) planes, 8 K of them messages)."""
     Hc = -(-H // 2)
     yield ("phase_messages_compact",
            on_card(testing.phase_inputs(1, K, Hc, W), COMPACT_ARGS),
-           dict(K=K, Hc=Hc, W=W), 31 * K + 24, Hc * W, 8 * Hc * W)
+           COMPACT_ARGS, dict(K=K, Hc=Hc, W=W), 4 * (31 * K + 24),
+           92 * K + 96, Hc * W, 8 * Hc * W)
     yield ("phase_messages",
            on_card(testing.phase_inputs_full(1, K, H, W), FULL_ARGS),
-           dict(K=K, H=H, W=W), 18 * K + 13, H * W, 4 * H * W)
+           FULL_ARGS, dict(K=K, H=H, W=W), 4 * (18 * K + 13), 56 * K + 52,
+           H * W, 4 * H * W)
     torch.cuda.empty_cache()
 
 
 def time_phase(K: int, H: int, W: int, reps: int = 20,
                plain: bool = True) -> list:
     """Rows of the two phase kernels (``phase_problems``): median ms of
-    ``reps`` launches, the plain versions' (``plain``) and the bounds."""
+    ``reps`` launches with float32 message storage, the plain versions'
+    (``plain``) and the bounds; then the same launches with bfloat16 and
+    float16 storage (``ms_bf16``, ``ms_f16``) beside their bounds (the
+    bytes fall, the operations do not)."""
     rows = []
-    for name, args, shape, planes, pixels, sends in phase_problems(K, H, W):
+    for (name, args, names, shape, px_bytes, px_bytes_narrow, pixels,
+         sends) in phase_problems(K, H, W):
         fn = getattr(phase_kernel, name)
         ref = getattr(phase_kernel, name + "_ref")
         ms = time_ms(lambda: fn(*args, 8.0, 1), reps)
         plain_ms = (time_ms(lambda: ref(*args, 8.0, 1), 3, warmup=1)
                     if plain else None)
-        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, shape=shape,
-                         **bounds(planes, pixels, K, sends)))
+        n_ops = K * K * sends * OPS_PER_STEP
+        row = dict(name=name, ms=ms, plain_ms=plain_ms, shape=shape,
+                   **bound_of(px_bytes * pixels, n_ops))
+        for m_dtype, key in ((torch.bfloat16, "bf16"),
+                             (torch.float16, "f16")):
+            nargs = narrow(args, names, m_dtype)
+            row["ms_" + key] = time_ms(lambda: fn(*nargs, 8.0, 1), reps)
+            del nargs
+        nb = bound_of(px_bytes_narrow * pixels, n_ops)
+        row.update(bytes_ms_bf16=nb["bytes_ms"], bound_ms_bf16=nb["bound_ms"],
+                   bound_by_bf16=nb["bound_by"])
+        rows.append(row)
         del args
     return rows
 
@@ -2409,6 +2608,10 @@ def time_scanline_sweep(K: int, H: int, W: int, reps: int) -> dict:
 def phase_timings(launches: dict, err: dict, smi: str) -> list:
     K, H, W = FULL
     rows = time_phase(K, H, W)
+    # the phase kernels at baby2's K = 15 (synthetic data), where the bytes
+    # bound them, with each storage type
+    say("phase_k15", card=smi, rows=time_phase(SIM_K, *SIM_SIZE,
+                                               plain=False))
     # the column send at the shape a banded step gives it: the direction pair
     # of one group, K labels, all L lanes
     B, L = 2, banded.BandedSpec(H, W, BAND, BAND).L
@@ -2515,6 +2718,7 @@ def main():
     scanline_counts = phase_scanline_path(dm, proposals)
     host_ncc = host_ncc_moves(dm, proposals)
     checkpoint_counts = phase_checkpoint_path(dm, proposals)
+    narrow_teddy = phase_message_dtype_path(dm, proposals, PAIR, smi)
     parallel_counts = phase_parallel_path(dm, proposals, smi)
     del dm, proposals
     torch.cuda.empty_cache()
@@ -2526,7 +2730,7 @@ def main():
     banded_sweep_repeatable()
     wavefront_sweep_repeatable()
     phase_global_path()
-    baby2_counts, host_baby2 = phase_simultaneous_path()
+    baby2_counts, host_baby2, narrow_baby2 = phase_simultaneous_path(smi)
     say("host_path", card=smi, teddy_ncc=host_ncc, **host_baby2)
     phase_second_order_path()
     phase_render_path()
@@ -2553,6 +2757,10 @@ def main():
         if r["name"] in ("phase_messages_compact", "phase_messages",
                          "minplus_send"):
             r["launches_sharded"] = parallel_counts[r["name"]]
+        if r["name"] in ("phase_messages_compact", "phase_messages"):
+            # bfloat16 storage on teddy K = 79 and on baby2 K = 15
+            r["launches_message_dtype"] = (narrow_teddy[r["name"]]
+                                           + narrow_baby2[r["name"]])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ Build the port's solver problem, its ``DispMapNCC``, its
 package produced (``np.asarray`` of them), so that both packages compute
 the same thing from the same state — e.g. inject the JAX NCC volume and
 assignment to compare the fusion moves apart from volume building.
-Nothing of the JAX package is imported here.
+Nothing of the JAX package is imported here, nor ml_dtypes: bfloat16
+messages cross through their bits.
 """
 
 from __future__ import annotations
@@ -17,18 +18,50 @@ from stereo_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from stereo_tpu_torch.models.global_stereo import DispMapGlobalStereo
 from stereo_tpu_torch.models.ncc import DispMapNCC
 from stereo_tpu_torch.models.second_order import SecondOrderStereo
+from stereo_tpu_torch.utils.checkpoint import to_numpy
 
 
 def _as(a, dtype, dev):
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
 
+def _is_bf16_bits(a: np.ndarray) -> bool:
+    """A 2-byte dtype numpy has no float for: the JAX package's bfloat16
+    (``np.asarray`` of it: ml_dtypes' type, kind ``V``) or the ``|V2`` its
+    checkpoints store it as."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2
+
+
+def messages_from_numpy(messages, dtype=None, device=DEFAULT_DEVICE):
+    """Messages of the JAX package (anything ``np.asarray`` takes) as a
+    tensor on ``device``: bfloat16 ones through their bits (numpy has no
+    bfloat16 of its own, and ``torch.as_tensor`` refuses ml_dtypes'), then
+    in ``dtype`` (None: bfloat16 for bfloat16 input, else the input's)."""
+    a = np.asarray(messages)
+    if _is_bf16_bits(a):
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.as_tensor(a)
+    return t.to(device=resolve_device(device),
+                dtype=t.dtype if dtype is None else dtype)
+
+
+def messages_to_numpy(messages) -> np.ndarray:
+    """The inverse: a message tensor on the host, a bfloat16 one as its
+    2-byte patterns (``|V2``, as a checkpoint of either package holds it;
+    ``.view(ml_dtypes.bfloat16)`` of it is the JAX package's array)."""
+    return to_numpy(messages)
+
+
 def problem_from_numpy(unary, D0, Q, alphas, messages=None, *, dtype=None,
-                       device=DEFAULT_DEVICE):
+                       message_dtype=None, device=DEFAULT_DEVICE):
     """(unary [K,H,W], D0 [K,H,W], Q [4,K,H,W], alphas [4,H,W], messages
     [4,K,H,W] or None) as tensors on ``device``: the positional arguments of
     ``solvers.trws.solve`` plus the warm start.  ``dtype`` defaults to the
-    unary's."""
+    unary's; the messages come in ``message_dtype``, which defaults to
+    bfloat16 for the JAX package's bfloat16 messages (or a checkpoint's
+    ``|V2``) and to ``dtype`` otherwise."""
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.as_tensor(np.asarray(unary)).dtype
@@ -42,7 +75,9 @@ def problem_from_numpy(unary, D0, Q, alphas, messages=None, *, dtype=None,
     if messages is not None:
         if tuple(np.shape(messages)) != (4, K, H, W):
             raise ValueError("messages: expected shape [4, K, H, W]")
-        msgs = _as(messages, dtype, dev)
+        if message_dtype is None and not _is_bf16_bits(np.asarray(messages)):
+            message_dtype = dtype
+        msgs = messages_from_numpy(messages, message_dtype, dev)
     return (_as(unary, dtype, dev), _as(D0, dtype, dev), _as(Q, dtype, dev),
             _as(alphas, dtype, dev), msgs)
 

@@ -1,4 +1,5 @@
-// Checkerboard TRW-S phase kernels for NVIDIA Hopper (sm_90a), float32.
+// Checkerboard TRW-S phase kernels for NVIDIA Hopper (sm_90a): float32
+// compute, messages stored as float32, bfloat16 or float16.
 //
 // Plain C interface (loaded with ctypes): every function takes raw device
 // pointers and a CUDA stream, launches on that stream without synchronising,
@@ -11,6 +12,22 @@
 // -fmad=false keeps h + a * c as a separate multiply and add, so every value
 // equals the plain PyTorch version's bit for bit (min, abs and the
 // subtraction are exact or identically rounded).
+//
+// Narrow message storage.  The kernels are templates on the storage type MT
+// of the messages m (read) and out (written): float, __nv_bfloat16 or
+// __half.  A message is converted to float exactly when it is staged, every
+// operation is float32 as below, and each output is rounded once, to
+// nearest even (__float2bfloat16_rn / __float2half_rn, what torch's .to()
+// does to a finite float), where it is written.  A float m is staged with
+// cp.async; a 2-byte one, below cp.async's 4-byte minimum, with an ordinary
+// load into the same float slot.  With several passes of targets (below) the
+// earlier passes' unnormalised minima wait for the block's minimum: in the
+// output itself for float storage, in a float32 `park` scratch for narrow
+// storage, so that a narrow output is rounded once.  Entry points:
+// phase_messages_compact_<s> and phase_messages_<s>, s = f32, bf16, f16; the
+// narrow ones take the park scratch through the staging hand-shake
+// (ops/_launch.py::launch_staged): called without it where K needs it, they
+// launch nothing and say how many floats.
 //
 // Both kernels share one device routine, the "send": for one pixel and one
 // directed edge family,
@@ -66,6 +83,11 @@
 // Its (31 K + 24) planes of traffic take 0.25 ms at 3.35 TB/s.  At K = 15 the
 // bytes are the larger bound.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
+
 #include "minplus.cuh"
 
 namespace {
@@ -87,6 +109,31 @@ static_assert(MAX_GROUPS <= minplus::MAX_TB, "block_min_over_y's rows");
 // fewest passes of MAX_GROUPS warps at most, the groups spread evenly.
 int groups_for(int K) { return minplus::blocks_for<KT, MAX_GROUPS>(K); }
 
+// Passes of a block's targets for K labels (send_tile's npass).
+int passes_for(int K) {
+  const int ny = groups_for(K);
+  return ((K + KT - 1) / KT + ny - 1) / ny;
+}
+
+// A stored message to float (exact), and a float to storage (rounded once,
+// to nearest even).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename MT>
+__device__ __forceinline__ MT from_f32(float v) {
+  if constexpr (std::is_same_v<MT, __nv_bfloat16>) {
+    return __float2bfloat16_rn(v);
+  } else if constexpr (std::is_same_v<MT, __half>) {
+    return __float2half_rn(v);
+  } else {
+    return v;
+  }
+}
+
 // Dynamic shared memory of a block: two buffers of chunk x TILE sources,
 // each (g then h, ys) interleaved and m apart.
 size_t stage_bytes(int K) {
@@ -94,13 +141,15 @@ size_t stage_bytes(int K) {
 }
 
 // The calling thread's pixel: its operands, already offset to the pixel
-// (label planes `stride` floats apart), and what it writes.
+// (label planes `stride` elements apart), and what it writes.
+template <typename MT>
 struct Lane {
   const float* g;   // [K] source beliefs
-  const float* m;   // [K] messages subtracted from them
+  const MT* m;      // [K] messages subtracted from them
   const float* xt;  // [K] target positions
   const float* ys;  // [K] source positions
-  float* out;       // [K] the normalised message
+  MT* out;          // [K] the normalised message
+  float* park;      // [K] earlier passes' minima, narrow storage (parked)
   float* vmin;      // its minimum
   float a, valid;
   bool in;          // the pixel exists (else: loads only, no writes)
@@ -134,11 +183,22 @@ __device__ __forceinline__ void walk(const float2* hy, int n,
   }
 }
 
+// Where the earlier passes of a lane's targets wait for the block's
+// minimum: float storage in its own output, narrow storage in `park`.
+template <typename MT>
+__device__ __forceinline__ float* parked(const Lane<MT>& L) {
+  if constexpr (std::is_same_v<MT, float>) {
+    return L.out;
+  } else {
+    return L.park;
+  }
+}
+
 // One send for each pixel of the block's tile, done together by the
 // blockDim.y warps of the tile.  Every thread of the block must call it.
-template <int KERNEL>
-__device__ __forceinline__ void send_tile(const Lane& L, float tol, int K,
-                                          long long stride) {
+template <int KERNEL, typename MT>
+__device__ __forceinline__ void send_tile(const Lane<MT>& L, float tol,
+                                          int K, long long stride) {
   extern __shared__ float stage[];  // 2 x ([chunk][TILE][2] + [chunk][TILE])
   __shared__ float sm[minplus::MAX_TB][TILE];
   const int ny = blockDim.y, ty = threadIdx.y, x = threadIdx.x;
@@ -159,7 +219,11 @@ __device__ __forceinline__ void send_tile(const Lane& L, float tol, int K,
     for (int s = ty; s < n; s += ny) {
       const long long off = (long long)(s0 + s) * stride;
       __pipeline_memcpy_async(slot(b, 0, s), L.g + off, sizeof(float));
-      __pipeline_memcpy_async(slot(b, 1, s), L.m + off, sizeof(float));
+      if constexpr (std::is_same_v<MT, float>) {
+        __pipeline_memcpy_async(slot(b, 1, s), L.m + off, sizeof(float));
+      } else {  // 2 bytes: below cp.async's least copy
+        *slot(b, 1, s) = to_f32(L.m[off]);
+      }
       __pipeline_memcpy_async(slot(b, 2, s), L.ys + off, sizeof(float));
     }
     __pipeline_commit();
@@ -207,10 +271,10 @@ __device__ __forceinline__ void send_tile(const Lane& L, float tol, int K,
     if (walks) {
 #pragma unroll
       for (int u = 0; u < KT; ++u) part = fminf(part, acc[u]);
-      if (p + 1 < npass && L.in) {  // written again once vmin is known
+      if (p + 1 < npass && L.in) {  // parked until vmin is known
 #pragma unroll
         for (int u = 0; u < KT; ++u)
-          if (t0 + u < K) L.out[(t0 + u) * stride] = acc[u];
+          if (t0 + u < K) parked(L)[(t0 + u) * stride] = acc[u];
       }
     }
   }
@@ -220,28 +284,30 @@ __device__ __forceinline__ void send_tile(const Lane& L, float tol, int K,
   for (int p = 0; p + 1 < npass; ++p) {
     const int t = (p * ny + ty) * KT;
     for (int u = 0; u < KT && t + u < K; ++u) {
-      float* o = L.out + (t + u) * stride;
-      *o = (fminf(*o, far) - vmin) * L.valid;
+      const long long o = (t + u) * stride;
+      L.out[o] = from_f32<MT>((fminf(parked(L)[o], far) - vmin) * L.valid);
     }
   }
   if (t0 < K) {
 #pragma unroll
     for (int u = 0; u < KT; ++u)
       if (t0 + u < K)
-        L.out[(t0 + u) * stride] = (fminf(acc[u], far) - vmin) * L.valid;
+        L.out[(t0 + u) * stride] =
+            from_f32<MT>((fminf(acc[u], far) - vmin) * L.valid);
   }
   if (ty == 0) *L.vmin = vmin;
 }
 
 // Compact phase.  Block 8 * tile + 2 * d + variant: the eight sends of a
 // tile run side by side, so the arrays they share (gD, D0s, D0o) come from
-// L2 after the first.  block = (TILE, groups_for(K)).
-template <int KERNEL>
+// L2 after the first.  block = (TILE, groups_for(K)).  park: narrow storage
+// with several passes, [2][4, K, P] (newMs's then newMo's), else unused.
+template <int KERNEL, typename MT>
 __global__ void __launch_bounds__(MAX_GROUPS * TILE, MIN_BLOCKS)
 phase_compact_kernel(const float* __restrict__ gD,   // [K, P]
                      const float* __restrict__ gDn,  // [4, K, P]
-                     const float* __restrict__ Ms,   // [4, K, P]
-                     const float* __restrict__ Mo,   // [4, K, P]
+                     const MT* __restrict__ Ms,      // [4, K, P]
+                     const MT* __restrict__ Mo,      // [4, K, P]
                      const float* __restrict__ Qs,   // [4, K, P]
                      const float* __restrict__ Qo,   // [4, K, P]
                      const float* __restrict__ D0s,  // [K, P]
@@ -250,10 +316,11 @@ phase_compact_kernel(const float* __restrict__ gD,   // [K, P]
                      const float* __restrict__ ao,   // [4, P]
                      const float* __restrict__ vs,   // [4, P]
                      const float* __restrict__ vo,   // [4, P]
-                     float* __restrict__ newMs,      // [4, K, P]
-                     float* __restrict__ newMo,      // [4, K, P]
+                     MT* __restrict__ newMs,         // [4, K, P]
+                     MT* __restrict__ newMo,         // [4, K, P]
                      float* __restrict__ vmins,      // [4, P]
                      float* __restrict__ vmino,      // [4, P]
+                     float* __restrict__ park,       // [2, 4, K, P] (narrow)
                      float tol, int K, long long P) {
   const long long q = (long long)(blockIdx.x >> 3) * TILE + threadIdx.x;
   const long long p = q < P ? q : P - 1;  // a missing pixel loads the last
@@ -261,15 +328,16 @@ phase_compact_kernel(const float* __restrict__ gD,   // [K, P]
   const long long dk = (long long)d * K * P + p;  // into a [4, K, P] array
   const long long dp = (long long)d * P + p;      // into a [4, P] array
   const bool in = q < P;
-  Lane L;
+  Lane<MT> L;
   if (!(blockIdx.x & 1)) {
     // s-heads: msg[i] = min_j (gD[j] - Ms[d][j]) + a * TR(Qs[d][i], D0s[j])
-    L = Lane{gD + p, Ms + dk, Qs + dk, D0s + p, newMs + dk, vmins + dp,
-             as[dp], vs[dp], in, true};
+    L = Lane<MT>{gD + p, Ms + dk, Qs + dk, D0s + p, newMs + dk,
+                 park + dk, vmins + dp, as[dp], vs[dp], in, true};
   } else {
     // o-heads: msg[j] = min_i (gDn[d][i] - Mo[d][i]) + a * TR(Qo[d][i], D0o[j])
-    L = Lane{gDn + dk, Mo + dk, D0o + p, Qo + dk, newMo + dk, vmino + dp,
-             ao[dp], vo[dp], in, false};
+    L = Lane<MT>{gDn + dk, Mo + dk, D0o + p, Qo + dk, newMo + dk,
+                 park + 4 * K * P + dk, vmino + dp, ao[dp], vo[dp], in,
+                 false};
   }
   send_tile<KERNEL>(L, tol, K, P);
 }
@@ -284,18 +352,20 @@ phase_compact_kernel(const float* __restrict__ gD,   // [K, P]
 // divergence.  Block 8 * tile + 2 * d + c: both colours of a tile run side
 // by side, so the sectors one reads half of come from L2 for the other, as
 // do gD and D0 for the four directions.  block = (TILE, groups_for(K)).
-template <int KERNEL>
+// park: narrow storage with several passes, [4, K, P], else unused.
+template <int KERNEL, typename MT>
 __global__ void __launch_bounds__(MAX_GROUPS * TILE, MIN_BLOCKS)
 phase_full_kernel(const float* __restrict__ gD,     // [K, P]
                   const float* __restrict__ gDs,    // [4, K, P]
-                  const float* __restrict__ M,      // [4, K, P]
+                  const MT* __restrict__ M,         // [4, K, P]
                   const float* __restrict__ Q,      // [4, K, P]
                   const float* __restrict__ D0,     // [K, P]
                   const float* __restrict__ alphas, // [4, P]
                   const float* __restrict__ srcm,   // [P]
                   const float* __restrict__ valid,  // [4, P]
-                  float* __restrict__ newM,         // [4, K, P]
+                  MT* __restrict__ newM,            // [4, K, P]
                   float* __restrict__ vmins,        // [4, P]
+                  float* __restrict__ park,         // [4, K, P] (narrow)
                   float tol, int K, int H, int W) {
   const int Wh = (W + 1) >> 1;
   const long long r = (long long)(blockIdx.x >> 3) * TILE + threadIdx.x;
@@ -308,15 +378,15 @@ phase_full_kernel(const float* __restrict__ gD,     // [K, P]
   const long long p = in ? (long long)y * W + x : 0;  // missing: pixel 0
   const long long dk = (long long)d * K * P + p;
   const long long dp = (long long)d * P + p;
-  Lane L;
+  Lane<MT> L;
   if (srcm[p] != 0.0f) {
     // head is the source (variant B): msg[i] = min_j (gD[j] - M[j]) + a TR
-    L = Lane{gD + p, M + dk, Q + dk, D0 + p, newM + dk, vmins + dp,
-             alphas[dp], valid[dp], in, true};
+    L = Lane<MT>{gD + p, M + dk, Q + dk, D0 + p, newM + dk, park + dk,
+                 vmins + dp, alphas[dp], valid[dp], in, true};
   } else {
     // tail is the source (variant A): msg[j] = min_i (gDs[i] - M[i]) + a TR
-    L = Lane{gDs + dk, M + dk, D0 + p, Q + dk, newM + dk, vmins + dp,
-             alphas[dp], valid[dp], in, false};
+    L = Lane<MT>{gDs + dk, M + dk, D0 + p, Q + dk, newM + dk, park + dk,
+                 vmins + dp, alphas[dp], valid[dp], in, false};
   }
   send_tile<KERNEL>(L, tol, K, P);
 }
@@ -333,17 +403,61 @@ int launch(void (*k1)(Params...), void (*k2)(Params...), int kernel, int K,
   return (int)cudaGetLastError();
 }
 
+// The park scratch a launch with storage MT needs: `outputs` arrays of
+// [4, K, P] floats for narrow storage with several passes, else none.
+// Where it is needed and `park` holds less, *need says how many floats and
+// the caller launches nothing (true).
+template <typename MT>
+bool park_missing(int K, long long P, int outputs, float* park,
+                  long long park_floats, long long* need) {
+  const long long n = (!std::is_same_v<MT, float> && passes_for(K) > 1)
+                          ? (long long)outputs * 4 * K * P : 0;
+  if (need != nullptr) *need = n;
+  return n > 0 && (park == nullptr || park_floats < n);
+}
+
+template <typename MT>
+int compact_entry(const float* gD, const float* gDn, const MT* Ms,
+                  const MT* Mo, const float* Qs, const float* Qo,
+                  const float* D0s, const float* D0o, const float* as,
+                  const float* ao, const float* vs, const float* vo,
+                  MT* newMs, MT* newMo, float* vmins, float* vmino,
+                  float tol, int kernel, int K, long long P, float* park,
+                  long long park_floats, long long* need, void* stream) {
+  if (park_missing<MT>(K, P, 2, park, park_floats, need)) return 0;
+  return launch(phase_compact_kernel<1, MT>, phase_compact_kernel<2, MT>,
+                kernel, K, (P + TILE - 1) / TILE, stream, gD, gDn, Ms, Mo,
+                Qs, Qo, D0s, D0o, as, ao, vs, vo, newMs, newMo, vmins, vmino,
+                park, tol, K, P);
+}
+
+template <typename MT>
+int full_entry(const float* gD, const float* gDs, const MT* M,
+               const float* Q, const float* D0, const float* alphas,
+               const float* srcm, const float* valid, MT* newM,
+               float* vmins, float tol, int kernel, int K, int H, int W,
+               float* park, long long park_floats, long long* need,
+               void* stream) {
+  if (park_missing<MT>(K, (long long)H * W, 1, park, park_floats, need))
+    return 0;
+  const long long n = (long long)H * ((W + 1) / 2);
+  return launch(phase_full_kernel<1, MT>, phase_full_kernel<2, MT>, kernel,
+                K, (n + TILE - 1) / TILE, stream, gD, gDs, M, Q, D0, alphas,
+                srcm, valid, newM, vmins, park, tol, K, H, W);
+}
+
 }  // namespace
 
+// float32 storage: parks in its own output, so no scratch hand-shake.
 extern "C" int phase_messages_compact_f32(
     const float* gD, const float* gDn, const float* Ms, const float* Mo,
     const float* Qs, const float* Qo, const float* D0s, const float* D0o,
     const float* as, const float* ao, const float* vs, const float* vo,
     float* newMs, float* newMo, float* vmins, float* vmino, float tol,
     int kernel, int K, long long P, void* stream) {
-  return launch(phase_compact_kernel<1>, phase_compact_kernel<2>, kernel, K,
-                (P + TILE - 1) / TILE, stream, gD, gDn, Ms, Mo, Qs, Qo, D0s,
-                D0o, as, ao, vs, vo, newMs, newMo, vmins, vmino, tol, K, P);
+  return compact_entry<float>(gD, gDn, Ms, Mo, Qs, Qo, D0s, D0o, as, ao, vs,
+                              vo, newMs, newMo, vmins, vmino, tol, kernel, K,
+                              P, nullptr, 0, nullptr, stream);
 }
 
 extern "C" int phase_messages_f32(
@@ -351,8 +465,35 @@ extern "C" int phase_messages_f32(
     const float* D0, const float* alphas, const float* srcm,
     const float* valid, float* newM, float* vmins, float tol, int kernel,
     int K, int H, int W, void* stream) {
-  const long long n = (long long)H * ((W + 1) / 2);
-  return launch(phase_full_kernel<1>, phase_full_kernel<2>, kernel, K,
-                (n + TILE - 1) / TILE, stream, gD, gDs, M, Q, D0, alphas,
-                srcm, valid, newM, vmins, tol, K, H, W);
+  return full_entry<float>(gD, gDs, M, Q, D0, alphas, srcm, valid, newM,
+                           vmins, tol, kernel, K, H, W, nullptr, 0, nullptr,
+                           stream);
 }
+
+// Narrow storage: the same arguments, then the park scratch (its floats,
+// and where to say the floats needed) before the stream.
+#define NARROW_ENTRIES(SUFFIX, MT)                                           \
+  extern "C" int phase_messages_compact_##SUFFIX(                            \
+      const float* gD, const float* gDn, const MT* Ms, const MT* Mo,         \
+      const float* Qs, const float* Qo, const float* D0s, const float* D0o,  \
+      const float* as, const float* ao, const float* vs, const float* vo,    \
+      MT* newMs, MT* newMo, float* vmins, float* vmino, float tol,           \
+      int kernel, int K, long long P, float* park, long long park_floats,    \
+      long long* need, void* stream) {                                       \
+    return compact_entry<MT>(gD, gDn, Ms, Mo, Qs, Qo, D0s, D0o, as, ao, vs,  \
+                             vo, newMs, newMo, vmins, vmino, tol, kernel, K, \
+                             P, park, park_floats, need, stream);            \
+  }                                                                          \
+  extern "C" int phase_messages_##SUFFIX(                                    \
+      const float* gD, const float* gDs, const MT* M, const float* Q,        \
+      const float* D0, const float* alphas, const float* srcm,               \
+      const float* valid, MT* newM, float* vmins, float tol, int kernel,     \
+      int K, int H, int W, float* park, long long park_floats,               \
+      long long* need, void* stream) {                                       \
+    return full_entry<MT>(gD, gDs, M, Q, D0, alphas, srcm, valid, newM,      \
+                          vmins, tol, kernel, K, H, W, park, park_floats,    \
+                          need, stream);                                     \
+  }
+
+NARROW_ENTRIES(bf16, __nv_bfloat16)
+NARROW_ENTRIES(f16, __half)

@@ -16,8 +16,6 @@ raster wavefront (solvers/wavefront.py) or the scanline order
 solvers/binary.py, the default) or, with ``fusion_backend="host"``, through
 exact QPBO on the host (solvers/qpbo_host.py, the port's copy of the native
 solver): the caller chooses; nothing falls back from one to the other.
-Narrow message storage (``message_dtype``) is not ported and raises in
-solvers/trws.py.
 """
 
 from __future__ import annotations

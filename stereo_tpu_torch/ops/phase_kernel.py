@@ -42,6 +42,17 @@ only.  Built with ``-fmad=false``: float32 results equal the plain versions
 bit for bit.  No single PyTorch call computes either function, so there is
 no library yardstick for them.
 
+Narrow message storage: the messages ``M*`` may be float32, bfloat16 or
+float16 (``MESSAGE_DTYPES``), and the new messages come out in the same
+dtype; everything else, the minima included, is float32.  A message is read
+into float32 exactly, the phase is computed in float32 as above, and each
+new message is rounded once (to nearest even) into storage, as the plain
+versions' ``.to(M.dtype)`` does, so narrow results too equal the plain
+versions bit for bit.  In bfloat16 the compact kernel moves (23 K + 24)
+planes of Hc x W float32, the full-grid kernel (14 K + 13) of H x W; K above
+160 (several passes of a block's targets) parks the earlier passes' minima
+in a float32 scratch the wrapper hands in, so that they are rounded once.
+
 A wrapper takes its plain version only when its tensors lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts
 kernel launches.
@@ -56,7 +67,7 @@ import torch
 from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.geometry import NUM_DIRS
 from stereo_tpu_torch.ops._launch import check_tensor as _check
-from stereo_tpu_torch.ops._launch import launch_failed as _launch_failed
+from stereo_tpu_torch.ops._launch import launch_staged as _launch_staged
 from stereo_tpu_torch.ops.minplus import minplus_pair_ref
 
 
@@ -64,7 +75,8 @@ from stereo_tpu_torch.ops.minplus import minplus_pair_ref
 def phase_messages_compact_ref(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
                                a_s, a_o, valid_s, valid_o, tol, kernel: int):
     """Plain PyTorch compacted phase; same contract as
-    ``phase_messages_compact``."""
+    ``phase_messages_compact`` (the new messages rounded once into the
+    messages' dtype, the minima in the problem's)."""
     K = gD_s.shape[0]
     newMs, newMo, vmins, vmino = [], [], [], []
     for d in range(NUM_DIRS):
@@ -77,7 +89,7 @@ def phase_messages_compact_ref(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
             contrib = HB[j][None] + term
             accB = contrib if accB is None else torch.minimum(accB, contrib)
         vminB = torch.min(accB, dim=0).values
-        newMs.append((accB - vminB[None]) * valid_s[d][None])
+        newMs.append(((accB - vminB[None]) * valid_s[d][None]).to(M_s.dtype))
         vmins.append(vminB)
         # variant A at o-heads: msg[j] = min_i HA[i] + a*TR(Q_i - D0_j)
         HA = gDn[d] - M_o[d]
@@ -88,7 +100,7 @@ def phase_messages_compact_ref(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
             rows.append(torch.min(HA + term, dim=0).values)
         msgA = torch.stack(rows, dim=0)
         vminA = torch.min(msgA, dim=0).values
-        newMo.append((msgA - vminA[None]) * valid_o[d][None])
+        newMo.append(((msgA - vminA[None]) * valid_o[d][None]).to(M_o.dtype))
         vmino.append(vminA)
     return (torch.stack(newMs, 0), torch.stack(newMo, 0),
             torch.stack(vmins, 0), torch.stack(vmino, 0))
@@ -106,26 +118,38 @@ def phase_messages_ref(gD, gD_shifted, M, Q, D0, alphas, src_is_head, valid,
                                       kernel)
         msg = torch.where(head[None], msgB, msgA)
         vmin = torch.min(msg, dim=0).values
-        newM.append((msg - vmin[None]) * valid[d][None])
+        newM.append(((msg - vmin[None]) * valid[d][None]).to(M.dtype))
         vmins.append(vmin)
     return torch.stack(newM, 0), torch.stack(vmins, 0)
 
 
 # ------------------------------------------------------------------ binding
+# message storage dtype -> suffix of the C entry points that store it
+MESSAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                  torch.float16: "f16"}
+
 _lib = None
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of a built phase_kernel
-    library's two functions."""
+    library's entry points: ``phase_messages_compact_<s>`` and
+    ``phase_messages_<s>`` for each storage suffix ``s`` the library has
+    (the narrow ones end in the scratch hand-shake of
+    ``_launch.launch_staged``)."""
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-    lib.phase_messages_compact_f32.argtypes = (
-        [ptr] * 16 + [f32, i32, i32, i64, ptr])
-    lib.phase_messages_compact_f32.restype = i32
-    lib.phase_messages_f32.argtypes = (
-        [ptr] * 10 + [f32, i32, i32, i32, i32, ptr])
-    lib.phase_messages_f32.restype = i32
+    staged = [ptr, i64, ptr]  # park scratch, its floats, the floats needed
+    for suffix in MESSAGE_DTYPES.values():
+        tail = [] if suffix == "f32" else staged
+        compact = getattr(lib, "phase_messages_compact_" + suffix, None)
+        if compact is None:  # a library built before narrow storage
+            continue
+        compact.argtypes = [ptr] * 16 + [f32, i32, i32, i64] + tail + [ptr]
+        compact.restype = i32
+        full = getattr(lib, "phase_messages_" + suffix)
+        full.argtypes = [ptr] * 10 + [f32, i32, i32, i32, i32] + tail + [ptr]
+        full.restype = i32
     return lib
 
 
@@ -139,6 +163,32 @@ def _library():
     return _lib
 
 
+def _storage(*Ms) -> torch.dtype:
+    """The one storage dtype of the message tensors ``Ms`` that the kernels
+    take; raises for mixed dtypes or one no kernel stores."""
+    dtype = Ms[0].dtype
+    if any(M.dtype != dtype for M in Ms):
+        raise ValueError("messages: M_s and M_o must share one dtype, got "
+                         f"{Ms[0].dtype} and {Ms[1].dtype}")
+    if dtype not in MESSAGE_DTYPES:
+        raise ValueError(f"messages: no CUDA kernel stores {dtype}; it "
+                         f"takes {', '.join(map(str, MESSAGE_DTYPES))}")
+    return dtype
+
+
+def _launch(fn: str, m_dtype, args, dev):
+    """Launch the entry point ``fn`` for storage ``m_dtype`` with ``args``
+    on the current stream; a narrow one through the scratch hand-shake."""
+    entry = getattr(_library(), f"{fn}_{MESSAGE_DTYPES[m_dtype]}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if m_dtype == torch.float32:  # parks in its own output: no scratch
+            call = lambda *scratch: entry(*args, stream)
+        else:
+            call = lambda *scratch: entry(*args, *scratch, stream)
+        _launch_staged(fn, call, dev)
+
+
 # ----------------------------------------------------------------- wrappers
 def phase_messages_compact(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
                            a_s, a_o, valid_s, valid_o, tol, kernel: int):
@@ -146,10 +196,11 @@ def phase_messages_compact(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
 
     gD_s, D0_*: [K, Hc, W]; gDn (tail beliefs at o-heads), M_*, Q_*:
     [4, K, Hc, W]; a_*, valid_*: [4, Hc, W].  Returns
-    (newM_s, newM_o, vmin_s, vmin_o).
+    (newM_s, newM_o, vmin_s, vmin_o), the messages in M_*'s dtype.
 
-    CUDA tensors: float32, contiguous; launches the kernel on the current
-    stream without synchronising.  CPU tensors: the plain version."""
+    CUDA tensors: contiguous, M_* of one ``MESSAGE_DTYPES`` dtype, the rest
+    float32; launches the kernel on the current stream without
+    synchronising.  CPU tensors: the plain version."""
     if kernel not in (1, 2):
         raise ValueError(f"Unknown smoothness kernel {kernel!r}")
     if not gD_s.is_cuda:
@@ -158,6 +209,7 @@ def phase_messages_compact(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
                                           valid_o, tol, kernel)
     K, Hc, W = gD_s.shape
     dev = gD_s.device
+    m_dtype = _storage(M_s, M_o)
     k3, k4, p3 = (K, Hc, W), (NUM_DIRS, K, Hc, W), (NUM_DIRS, Hc, W)
     args = (("gD_s", gD_s, k3), ("gDn", gDn, k4), ("M_s", M_s, k4),
             ("M_o", M_o, k4), ("Q_s", Q_s, k4), ("Q_o", Q_o, k4),
@@ -165,20 +217,16 @@ def phase_messages_compact(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
             ("a_o", a_o, p3), ("valid_s", valid_s, p3),
             ("valid_o", valid_o, p3))
     for name, t, shape in args:
-        _check(name, t, shape, dev)
-    lib = _library()
-    newMs = torch.empty(k4, dtype=torch.float32, device=dev)
-    newMo = torch.empty(k4, dtype=torch.float32, device=dev)
+        _check(name, t, shape, dev,
+               m_dtype if name.startswith("M_") else torch.float32)
+    newMs = torch.empty(k4, dtype=m_dtype, device=dev)
+    newMo = torch.empty(k4, dtype=m_dtype, device=dev)
     vmins = torch.empty(p3, dtype=torch.float32, device=dev)
     vmino = torch.empty(p3, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.phase_messages_compact_f32(
-            *(t.data_ptr() for _, t, _ in args), newMs.data_ptr(),
-            newMo.data_ptr(), vmins.data_ptr(), vmino.data_ptr(),
-            float(tol), int(kernel), K, Hc * W, stream)
-    if code != 0:
-        _launch_failed("phase_messages_compact", code)
+    _launch("phase_messages_compact", m_dtype,
+            (*(t.data_ptr() for _, t, _ in args), newMs.data_ptr(),
+             newMo.data_ptr(), vmins.data_ptr(), vmino.data_ptr(),
+             float(tol), int(kernel), K, Hc * W), dev)
     phase_messages_compact.launches += 1
     return newMs, newMo, vmins, vmino
 
@@ -192,10 +240,11 @@ def phase_messages(gD, gD_shifted, M, Q, D0, alphas, src_is_head, valid, tol,
 
     gD, D0: [K, H, W]; gD_shifted, M, Q: [4, K, H, W]; alphas, valid:
     [4, H, W]; src_is_head: [H, W] (1.0 where the head pixel is this phase's
-    source).  Returns (newM [4, K, H, W], vmins [4, H, W]).
+    source).  Returns (newM [4, K, H, W] in M's dtype, vmins [4, H, W]).
 
-    CUDA tensors: float32, contiguous; launches the kernel on the current
-    stream without synchronising.  CPU tensors: the plain version."""
+    CUDA tensors: contiguous, M of a ``MESSAGE_DTYPES`` dtype, the rest
+    float32; launches the kernel on the current stream without
+    synchronising.  CPU tensors: the plain version."""
     if kernel not in (1, 2):
         raise ValueError(f"Unknown smoothness kernel {kernel!r}")
     if not gD.is_cuda:
@@ -203,22 +252,18 @@ def phase_messages(gD, gD_shifted, M, Q, D0, alphas, src_is_head, valid, tol,
                                   src_is_head, valid, tol, kernel)
     K, H, W = gD.shape
     dev = gD.device
+    m_dtype = _storage(M)
     k3, k4, p3 = (K, H, W), (NUM_DIRS, K, H, W), (NUM_DIRS, H, W)
     args = (("gD", gD, k3), ("gD_shifted", gD_shifted, k4), ("M", M, k4),
             ("Q", Q, k4), ("D0", D0, k3), ("alphas", alphas, p3),
             ("src_is_head", src_is_head, (H, W)), ("valid", valid, p3))
     for name, t, shape in args:
-        _check(name, t, shape, dev)
-    lib = _library()
-    newM = torch.empty(k4, dtype=torch.float32, device=dev)
+        _check(name, t, shape, dev, m_dtype if name == "M" else torch.float32)
+    newM = torch.empty(k4, dtype=m_dtype, device=dev)
     vmins = torch.empty(p3, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.phase_messages_f32(
-            *(t.data_ptr() for _, t, _ in args), newM.data_ptr(),
-            vmins.data_ptr(), float(tol), int(kernel), K, H, W, stream)
-    if code != 0:
-        _launch_failed("phase_messages", code)
+    _launch("phase_messages", m_dtype,
+            (*(t.data_ptr() for _, t, _ in args), newM.data_ptr(),
+             vmins.data_ptr(), float(tol), int(kernel), K, H, W), dev)
     phase_messages.launches += 1
     return newM, vmins
 

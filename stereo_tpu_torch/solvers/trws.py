@@ -72,7 +72,8 @@ def _node_beliefs(theta, M):
     """theta + sum of all 8 incident message buffers, for every pixel.
 
     Valid only at pixels whose incident buffers currently point *into* them;
-    callers mask by checkerboard color."""
+    callers mask by checkerboard color.  theta comes first, so narrow
+    messages are added to a problem-dtype sum, never to each other."""
     D = theta
     for d in range(NUM_DIRS):
         # in-edge buffers E(p, d) live at p
@@ -231,10 +232,12 @@ class _Problem:
     validity masks are those of the global columns, the lower-bound and
     energy partials count the owned pixels only, and the compact layout
     keeps the local column parity: global colour s is local colour
-    (s + a) % 2.  ``cols=None`` is the one-device problem."""
+    (s + a) % 2.  ``cols=None`` is the one-device problem.
+
+    ``message_dtype``: the messages' storage dtype (None: the problem's)."""
 
     def __init__(self, unary, positions, nbr_positions, alphas, kernel, tol,
-                 mode, compact, use_kernel, cols=None):
+                 mode, compact, use_kernel, cols=None, message_dtype=None):
         if mode not in ("trws", "bp"):
             raise ValueError(f"unknown mode {mode!r}")
         K, H, W = unary.shape
@@ -243,6 +246,7 @@ class _Problem:
         self.K, self.H, self.W = K, H, W
         self.kernel, self.tol, self.mode = kernel, tol, mode
         self.dtype, self.device = dtype, dev
+        self.m_dtype = dtype if message_dtype is None else message_dtype
         self.use_kernel = use_kernel
         self.accumulate_lb = mode == "trws"
         # compact on the card (its kernel computes each variant once on its
@@ -285,13 +289,14 @@ class _Problem:
         """Message state in storage layout (compact pair or full buffer)."""
         if messages is None:
             messages = torch.zeros((NUM_DIRS, self.K, self.H, self.W),
-                                   dtype=self.dtype, device=self.device)
+                                   dtype=self.m_dtype, device=self.device)
         else:
-            messages = messages.to(self.dtype).contiguous()
+            messages = messages.to(self.m_dtype).contiguous()
         return self.to_compact(messages) if self.compact else messages
 
     def messages(self, state):
-        """[4, K, H, W] message buffer from a state."""
+        """[4, K, H, W] message buffer (in the storage dtype) from a
+        state."""
         return self.to_full(state) if self.compact else state
 
     def half(self, M, color: int):
@@ -356,7 +361,7 @@ def solve(
     mode: str = "trws",  # "trws" | "bp"
     use_kernel: bool = True,  # False = the plain PyTorch phase (see below)
     check_every: int = 1,  # decode + test the stopping rule every N sweeps
-    message_dtype=None,
+    message_dtype: torch.dtype | None = None,  # e.g. torch.bfloat16 storage
     compact: bool | None = None,  # checkerboard H-compaction (None = auto)
 ) -> TRWSResult:
     """Run checkerboard TRW-S (or plain loopy BP) to the reference's stopping
@@ -367,13 +372,10 @@ def solve(
     half-grid phases on a CUDA device and the full grid on the CPU.
     ``use_kernel=False`` holds the kernels against their plain versions (the
     counterpart of the JAX package's ``use_pallas``); leave it True
-    otherwise."""
-    if message_dtype is not None:
-        raise NotImplementedError(
-            "message_dtype (narrow message storage) is not ported yet; see "
-            "ROADMAP.md, 'Modules to port'")
+    otherwise.  ``message_dtype`` narrows the message storage (see the
+    module's note); the result's messages are in it."""
     prob = _Problem(unary, positions, nbr_positions, alphas, kernel, tol,
-                    mode, compact, use_kernel)
+                    mode, compact, use_kernel, message_dtype=message_dtype)
     M = prob.init_state(messages)
     zero = torch.zeros((), dtype=acc_dtype(prob.dtype), device=prob.device)
     energy, lb = zero, zero
@@ -408,13 +410,11 @@ class TRWSRun:
 
     def __init__(self, unary, positions, nbr_positions, alphas, *, kernel,
                  tol, mode: str = "trws", use_kernel: bool = True,
-                 compact: bool | None = None, message_dtype=None):
-        if message_dtype is not None:
-            raise NotImplementedError(
-                "message_dtype (narrow message storage) is not ported yet; "
-                "see ROADMAP.md, 'Modules to port'")
+                 compact: bool | None = None,
+                 message_dtype: torch.dtype | None = None):
         self._p = _Problem(unary, positions, nbr_positions, alphas, kernel,
-                           tol, mode, compact, use_kernel)
+                           tol, mode, compact, use_kernel,
+                           message_dtype=message_dtype)
         self.K, self.H, self.W = self._p.K, self._p.H, self._p.W
         self.kernel, self.tol, self.mode = kernel, tol, mode
         self.dtype = self._p.dtype

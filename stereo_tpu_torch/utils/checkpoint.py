@@ -8,7 +8,9 @@ fusion can resume mid-sweep with an identical trajectory.
 
 Format: one ``<name>-<step>.npz`` per step, the nest flattened to string key
 paths, written to a temporary file and atomically renamed; an optional
-background thread makes saves non-blocking.  The key paths are the JAX
+background thread makes saves non-blocking.  A bfloat16 leaf (narrow
+message storage) is written as its 2-byte patterns, ``|V2``, and loads as
+such, as in the JAX package.  The key paths are the JAX
 package's (``"['a']"``, ``"['b']/['c']"``, ``"[0]"``, ``".x"`` for a named
 tuple's field), so each package loads the other's files.
 """
@@ -42,15 +44,22 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def to_numpy(leaf) -> np.ndarray:
+    """A leaf as the numpy array a checkpoint holds: a tensor copied to the
+    host; a bfloat16 one, which numpy has no type for, as its 2-byte
+    patterns (``|V2``), as the JAX package's ``Checkpointer`` writes a
+    bfloat16 array (``convert.problem_from_numpy`` reads them back)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(leaf)
 
 
 def _flatten(tree) -> dict:
     """The nest as {key path: numpy array}; tensors are copied to the host."""
-    return {"/".join(path): _to_numpy(leaf) for path, leaf in _leaves(tree)}
+    return {"/".join(path): to_numpy(leaf) for path, leaf in _leaves(tree)}
 
 
 class Checkpointer:

@@ -101,6 +101,86 @@ def test_wrapper_raises_on_card_for_bad_input(cuda):
         t_pk.phase_messages_compact(*bad, 1.0, 1)
 
 
+# narrow message storage: K in one pass and in several (202: the earlier
+# passes parked in float32 scratch), a < 0 on a third of the pixels
+NARROW_SHAPES = [(2, 5, 9), (15, 19, 53), (79, 19, 53), (202, 19, 53)]
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("K,Hc,W", NARROW_SHAPES)
+@pytest.mark.parametrize("m_dtype", [torch.bfloat16, torch.float16])
+def test_narrow_storage_kernels_bitwise_on_card(cuda, m_dtype, K, Hc, W,
+                                                kernel, negative):
+    """Both phase kernels with messages stored in ``m_dtype`` against their
+    plain versions, bit for bit: the new messages in ``m_dtype``, the
+    minima float32."""
+    inp = testing.phase_inputs(K, K, Hc, W, np.float32)
+    if negative:
+        inp = testing.negate_alphas(inp, K)
+    args = [torch.as_tensor(inp[k], device=cuda) for k in COMPACT_ARGS]
+    args[2], args[3] = args[2].to(m_dtype), args[3].to(m_dtype)
+    got = t_pk.phase_messages_compact(*args, 1.1, kernel)
+    torch.cuda.synchronize()
+    ref = t_pk.phase_messages_compact_ref(*args, 1.1, kernel)
+    assert [g.dtype for g in got] == [m_dtype] * 2 + [torch.float32] * 2
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    for color in (0, 1):
+        inp = testing.phase_inputs_full(K, K, 2 * Hc - 1, W, color,
+                                        np.float32)
+        if negative:
+            inp = testing.negate_alphas(inp, K + color)
+        args = [torch.as_tensor(inp[k], device=cuda) for k in FULL_ARGS]
+        args[2] = args[2].to(m_dtype)
+        got = t_pk.phase_messages(*args, 0.9, kernel)
+        torch.cuda.synchronize()
+        ref = t_pk.phase_messages_ref(*args, 0.9, kernel)
+        assert got[0].dtype == m_dtype
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+def test_wrapper_refuses_storage_on_card(cuda):
+    """Mixed M_s / M_o dtypes and a storage dtype no kernel instantiates
+    (float64) raise before any launch; there is no plain fallback."""
+    inp = testing.phase_inputs(0, 3, 4, 5, np.float32)
+    args = [torch.as_tensor(inp[k], device=cuda) for k in COMPACT_ARGS]
+    before = t_pk.phase_messages_compact.launches
+    bad = list(args)
+    bad[2] = bad[2].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="one dtype"):
+        t_pk.phase_messages_compact(*bad, 1.0, 1)
+    bad[3] = bad[3].to(torch.bfloat16)
+    bad[0] = bad[0].to(torch.bfloat16)  # only the messages may be narrow
+    with pytest.raises(ValueError, match="float32"):
+        t_pk.phase_messages_compact(*bad, 1.0, 1)
+    bad = list(args)
+    bad[2], bad[3] = bad[2].double(), bad[3].double()
+    with pytest.raises(ValueError, match="no CUDA kernel stores"):
+        t_pk.phase_messages_compact(*bad, 1.0, 1)
+    full = testing.phase_inputs_full(0, 3, 7, 5, 0, np.float32)
+    fargs = [torch.as_tensor(full[k], device=cuda) for k in FULL_ARGS]
+    fargs[2] = fargs[2].double()
+    with pytest.raises(ValueError, match="no CUDA kernel stores"):
+        t_pk.phase_messages(*fargs, 1.0, 1)
+    assert t_pk.phase_messages_compact.launches == before
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_solve_bf16_on_card_kernel_equals_plain(cuda, compact):
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.synthetic_problem(8, 37, 53, seed=2)]
+    kw = dict(kernel=1, tol=0.02, maxiter=4, max_relgap=0.0,
+              compact=compact, message_dtype=torch.bfloat16)
+    got = t_trws.solve(*prob, **kw)
+    ref = t_trws.solve(*prob, **kw, use_kernel=False)
+    assert got.messages.dtype == torch.bfloat16
+    assert torch.equal(got.labels, ref.labels)
+    assert torch.equal(got.messages, ref.messages)
+    assert float(got.lower_bound) <= float(got.energy)
+
+
 @pytest.mark.parametrize("compact", [True, False])
 def test_solve_on_card_kernel_equals_plain(cuda, compact):
     prob = [torch.as_tensor(a, device=cuda)

@@ -1,6 +1,6 @@
 """The port stands alone: no file under stereo_tpu_torch/, nor chip_smoke.py,
-the port's examples or its three tools, imports jax, anything of stereo_tpu, or
-PIL (an AST scan — the interpreter may have jax loaded already, so
+the port's examples or its tools, imports jax, anything of stereo_tpu,
+ml_dtypes or PIL (an AST scan — the interpreter may have jax loaded already, so
 sys.modules cannot tell).  And with no card present, an entry point called with its default
 device raises instead of computing on the CPU."""
 
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-FORBIDDEN = ("jax", "jaxlib", "stereo_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "stereo_tpu", "ml_dtypes", "PIL")
 
 FILES = sorted(
     glob.glob(os.path.join(ROOT, "stereo_tpu_torch", "**", "*.py"),
@@ -29,7 +29,9 @@ FILES = sorted(
        os.path.join(ROOT, "tools", "profile_main_path.py"),
        os.path.join(ROOT, "tools", "time_banded_kernel.py"),
        os.path.join(ROOT, "tools", "profile_segpln.py"),
-       os.path.join(ROOT, "tools", "check_multicard.py")])
+       os.path.join(ROOT, "tools", "check_multicard.py"),
+       os.path.join(ROOT, "tools", "check_determinism.py"),
+       os.path.join(ROOT, "tools", "measure_message_dtype.py")])
 
 
 def _imports(path):
@@ -216,10 +218,10 @@ def test_examples_raise_without_card(name, args, monkeypatch):
 
 
 def test_unported_options_raise():
-    """Of the JAX package's options only narrow message storage
-    (``message_dtype``) is still refused; unknown names raise.  The
-    scanline schedule and the host (QPBO) fusion backend construct and
-    solve on the CPU."""
+    """No option of the JAX package is refused any more; unknown names
+    raise.  The scanline schedule and the host (QPBO) fusion backend
+    construct and solve on the CPU, and so does narrow message storage
+    (``message_dtype``)."""
     from stereo_tpu_torch import geometry, testing
     from stereo_tpu_torch.models.ncc import DispMapNCC
     from stereo_tpu_torch.solvers import trws
@@ -250,8 +252,9 @@ def test_unported_options_raise():
                                                       dm.dtype, "cpu"))
     assert np.isfinite([e, lb]).all() and lb <= e + 1e-9 and e <= e0
     t = [torch.as_tensor(a) for a in testing.trws_problem(0, 3, 4, 5)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trws.solve(*t, kernel=1, tol=1.0, message_dtype=torch.bfloat16)
+    res = trws.solve(*t, kernel=1, tol=1.0, message_dtype=torch.bfloat16)
+    assert res.messages.dtype == torch.bfloat16
+    assert float(res.lower_bound) <= float(res.energy) + 1e-9
 
 
 def test_kernel_wrapper_refuses_wrong_cuda_input():

@@ -6,6 +6,7 @@ default), csrc/wavefront_kernel.cu (kernel 6), csrc/phase_kernel.cu
 
     python3 tools/time_banded_kernel.py [--kernel banded|wavefront|phase|send|pair]
     python3 tools/time_banded_kernel.py --kernel phase|send|pair --against DIR ...
+    python3 tools/time_banded_kernel.py --kernel phase --message-dtype bfloat16
 
 Needs one NVIDIA GPU and nvcc.  It builds only the kernel's source, then
 runs chip_smoke.py's own functions (no second copy of them).  For a fused
@@ -28,18 +29,23 @@ K = 79 (compact 188 x 450, full grid 375 x 450) and at K = 15 (compact
 the one launch of a banded step (six problems, L = 1536) and of a
 wavefront step (two, L = 375) at K = 79, on the host's clock (50 calls
 back to back, then a synchronise) and on the device (torch.profiler); the
-pair at [79, 375, 450] (median of 20).  ``--against`` names the csrc/
-directories of other trees (a parent unpacked beside this one, a variant):
-their source is built too (with the wrappers of their own ops/minplus.py
-where the directory has one beside it), checked against the plain versions
+pair at [79, 375, 450] (median of 20).  The phase rows carry the times with
+bfloat16 and float16 message storage too (``ms_bf16``, ``ms_f16``).
+``--against`` names the csrc/ directories of other trees (a parent unpacked
+beside this one, a variant): their source is built too (with the wrappers
+of their own ops/minplus.py where the directory has one beside it),
+checked against the plain versions
 (phase: at 37 x 53, K = 15 and 79, both smoothness kernels; send: a banded
 and a wavefront step at K = 79, a < 0 on a third of the lanes; pair:
 37 x 53 at K = 17 and 79 and K = 202 on 19 x 53), and timed in the same
-process, in turns with this tree's (``ROUNDS`` rounds, the order reversed
-every other round; phase and pair: a run of 50 launches back to back
-between two CUDA events; send: 50 step calls on the host's clock, and the
-device time of 20 under the profiler, of the send kernels and of every
-kernel of the call), so that the versions share the card's state.  A tree
+process, in turns with this tree's (phase: ``--message-dtype bfloat16``
+times this tree's kernels with bfloat16 message storage and with float32
+in turns with the other trees' float32 ones, and needs no ``--against``;
+``ROUNDS`` rounds, the order reversed every other round; phase and pair: a
+run of 50 launches back to back between two CUDA events; send: 50 step
+calls on the host's clock, and the device time of 20 under the profiler,
+of the send kernels and of every kernel of the call), so that the versions
+share the card's state.  A tree
 whose send has no gathered entry point (the parent's) makes a step's sends
 as its solvers did: one call of its ``minplus_send`` per send, on
 h = g - m formed by a subtraction.  These in-turn times are for comparing
@@ -213,35 +219,44 @@ def issue_floor_ms(row: dict) -> float:
     return s["K"] ** 2 * sends * INSTR_PER_TERM / PEAK_INSTR * 1e3
 
 
-def phase_in_turns(others: list[str], smi: str):
-    """This tree's phase kernels and those of ``others`` (csrc/ directories),
-    each checked against the plain versions, then timed in turns."""
-    libs = {"this": phase_kernel._library()}
+def phase_in_turns(others: list[str], smi: str, m_dtype=torch.float32):
+    """This tree's phase kernels with ``m_dtype`` message storage (and, for
+    a narrow one, with float32 too) and those of ``others`` (csrc/
+    directories, float32 storage), each checked against the plain versions,
+    then timed in turns."""
+    this = phase_kernel._library()
+    runs = {f"this/{m_dtype}".replace("torch.", ""): (this, m_dtype)}
+    if m_dtype != torch.float32:
+        runs["this/float32"] = (this, torch.float32)
     for d in others:
-        libs[os.path.abspath(d)] = phase_kernel.bind(
-            ctypes.CDLL(build("phase_kernel", d)))
+        runs[os.path.abspath(d)] = (phase_kernel.bind(
+            ctypes.CDLL(build("phase_kernel", d))), torch.float32)
     err = {"phase_messages_compact": 0.0, "phase_messages": 0.0}
-    for name, lib in libs.items():
+    for name, (lib, dt) in runs.items():
         phase_kernel._lib = lib
         for K in (15, 79):
             for kernel in (1, 2):
                 cs.phase_case(err, K, 37, 53, kernel,
-                              1.1 if kernel == 1 else 0.9, K + kernel)
+                              1.1 if kernel == 1 else 0.9, K + kernel,
+                              m_dtype=dt)
         cs.say("checked", tree=name, max_abs_err=err)
     times = collections.defaultdict(list)
     for suffix, K, H, W in (("", *cs.FULL), ("_k15", 15, 370, 413)):
-        for kernel, args, *_ in cs.phase_problems(K, H, W):
+        for kernel, args, names, *_ in cs.phase_problems(K, H, W):
             fn = getattr(phase_kernel, kernel)
+            targs = {dt: cs.narrow(args, names, dt)
+                     for dt in {dt for _, dt in runs.values()}}
             for r in range(ROUNDS):
-                for name in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
-                    phase_kernel._lib = libs[name]
+                for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                    lib, dt = runs[name]
+                    phase_kernel._lib = lib
                     times[(kernel + suffix, name)].append(
-                        batch_ms(lambda: fn(*args, 8.0, 1)))
-            del args
+                        batch_ms(lambda: fn(*targs[dt], 8.0, 1)))
+            del args, targs
     for (kernel, name), ms in sorted(times.items()):
         cs.say("in_turns", kernel=kernel, tree=name, card=smi,
                median_ms=sorted(ms)[len(ms) // 2], ms=ms)
-    phase_kernel._lib = libs["this"]
+    phase_kernel._lib = this
 
 
 def host_ms(fn, n: int = 50) -> float:
@@ -411,6 +426,10 @@ def main():
     ap.add_argument("--against", nargs="*", default=[],
                     help="csrc/ directories of other trees (phase, send "
                          "and pair)")
+    ap.add_argument("--message-dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="phase: the message storage of this tree's "
+                         "kernels in turns (the other trees' float32)")
     args = ap.parse_args()
     kind = args.kernel
     smi = cs.nvidia_smi()
@@ -457,8 +476,9 @@ def main():
                 floor = issue_floor_ms(row)
                 cs.say(row.pop("name") + suffix, card=smi,
                        issue_floor_ms=floor, **row)
-        if args.against:
-            phase_in_turns(args.against, smi)
+        m_dtype = getattr(torch, args.message_dtype)
+        if args.against or m_dtype != torch.float32:
+            phase_in_turns(args.against, smi, m_dtype)
         print(smi, flush=True)
         return
     name = f"sweep_{kind}"
