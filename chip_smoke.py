@@ -22,13 +22,17 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      on a third of the lanes and with tol in {1e-3, 1e6}; the
      fused banded sweep on twelve problems up to teddy K = 79 and K = 202
      with 128 x 128 blocks and K in {97, 202, 300, 1000}, one sweep from
-     zero messages and one from the warm state (messages and seam arrays bit
-     for bit, the lower bound to rtol 1e-5); the min-plus pair for K in {2,
+     zero messages and one from the warm state, each at every phase-B job
+     width (32, 16 and 8 lanes forced, and chosen a step) against one plain
+     sweep, four problems (teddy K = 79 among them) with a < 0 on a third
+     of the pixels (messages and seam arrays bit for bit, the lower bound
+     to rtol 1e-5); the min-plus pair for K in {2,
      8, 15, 79, 300} x kernel x {37x53, 375x450} and K = 1000 on 37x53 and
      200x320 (border pixels with alpha = 0), and at 37x53 for K in {17, 79}
      with a < 0 on a third of the pixels and with tol in {1e-3, 1e6}; the fused raster-wavefront
      sweep on fourteen problems up to teddy K = 79 and K = 202 and K in
-     {97, 128, 202, 300, 1000}, the same two sweeps;
+     {97, 128, 202, 300, 1000}, the same two sweeps at every width, four
+     problems with a < 0;
   3. drives the main path at full width: DispMapNCC on data/teddy (375x450,
      51 disparities), 72 RANSAC + 6 fronto-parallel proposals, binary fusion
      sweep over all 78, restart, simultaneous fusion over K = 79 labels with
@@ -131,7 +135,8 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      the package lies on 17 and 18;
  19. times every kernel at the teddy K = 79 shape (CUDA events) beside its
      plain version and its byte / operation bounds (the fused sweeps also at
-     K = 15 and K = 202, beside their plain versions; the column send also
+     K = 15 and K = 202, beside their plain versions, in their rows'
+     ``at_k15`` and ``at_k202``, with the grid of blocks; the column send also
      as the one launch of a banded and of a wavefront step and of the two
      phases of a scanline row, and a whole scanline sweep at K = 79 and
      K = 15; the phase kernels also with bfloat16 and float16 message
@@ -263,6 +268,15 @@ BANDED_CASES = ((3, 8, 10, 4, 5), (4, 9, 8, 4, 4), (3, 10, 11, 5, 4),
 WAVEFRONT_CASES = ((3, 6, 9), (4, 7, 6), (3, 40, 9), (3, 9, 40), (3, 2, 9),
                    (3, 9, 2), (15, 40, 47), FULL, (97, 7, 9), (128, 7, 9),
                    (202, 9, 40), (202, 375, 450), (300, 40, 9), (1000, 7, 9))
+# every fused-sweep case runs at each phase-B job width, forced, and chosen
+# a step (0), against one plain sweep; teddy's banded steps run from 4 to
+# 196 jobs of 32 lanes (thin and busy steps on 132 blocks), and a forced
+# narrow width gives several rounds.  The cases with weights a < 0 on a
+# third of the pixels (their lanes walk the plain term, the rest the
+# hoisted one), by their index in the lists above:
+SWEEP_WIDTHS = (0, 32, 16, 8)
+BANDED_NEGATIVE = (3, 4, 6, 8)
+WAVEFRONT_NEGATIVE = (2, 6, 7, 9)
 # the send and pair kernels' comparisons: K in one pass, in several, and
 # staged in global scratch, there with more jobs (tiles of 32 lanes or
 # pixels) than blocks resident at once (at most 5 blocks of 384 threads on
@@ -559,34 +573,51 @@ def pair_vs_plain(err: dict) -> int:
     return cases
 
 
+def sweep_problem(seed: int, K: int, H: int, W: int, negative: bool):
+    """A fused sweep's random problem on the card; ``negative``: the
+    weights of a third of the pixels (in every direction) negated."""
+    prob = list(testing.trws_problem(seed, K, H, W, np.float32))
+    if negative:
+        rng = np.random.default_rng(seed)
+        flip = rng.uniform(0, 1, (H, W)) < 1 / 3
+        prob[3] = np.where(flip[None], -prob[3], prob[3]).astype(np.float32)
+    return [torch.as_tensor(a, device=DEV) for a in prob]
+
+
 def wavefront_sweep_vs_plain(err: dict) -> int:
     """The fused wavefront sweep kernel against
     wavefront._sweep_steps(use_kernel=False): one sweep from zero messages,
-    one from the warm state."""
+    one from the warm state, at every job width (SWEEP_WIDTHS), each from
+    the same state as the plain sweep."""
     cases = 0
-    for (K, H, W) in WAVEFRONT_CASES:
+    for i, (K, H, W) in enumerate(WAVEFRONT_CASES):
+        negative = i in WAVEFRONT_NEGATIVE
         for kernel in (1, 2):
-            prob = [torch.as_tensor(a, device=DEV) for a in
-                    testing.trws_problem(K + H + kernel, K, H, W, np.float32)]
-            sk = wavefront._Skewed(*prob, kernel, 1.0)
+            sk = wavefront._Skewed(
+                *sweep_problem(K + H + kernel, K, H, W, negative), kernel,
+                1.0)
             M = wavefront.messages_to_groups(
                 torch.zeros((4, K, H, W), device=DEV), W)
             for start in ("zero", "warm"):
                 ref, lb_ref = wavefront._sweep_steps(
                     sk, (M[0].clone(), M[1].clone()), use_kernel=False)
-                M, lb = wavefront_kernel.sweep_wavefront(sk, M)
-                torch.cuda.synchronize()
-                what = f"K={K}, {H}x{W}, kernel={kernel}, {start}"
-                for name, g, r in zip(("MA", "MB"), M, ref):
-                    err["sweep_wavefront"] = max(err["sweep_wavefront"],
-                                                 float((g - r).abs().max()))
-                    check(torch.equal(g, r),
-                          f"wavefront sweep != plain version ({name}; {what})")
-                rel = abs(float(lb) - float(lb_ref)) / abs(float(lb_ref))
-                check(rel <= 1e-5, f"wavefront sweep's bound {float(lb)} vs "
-                      f"{float(lb_ref)} ({what})")
-                cases += 1
-            del prob, sk, M, ref
+                for width in SWEEP_WIDTHS:
+                    out, lb = wavefront_kernel.sweep_wavefront(
+                        sk, (M[0].clone(), M[1].clone()), width)
+                    torch.cuda.synchronize()
+                    what = (f"K={K}, {H}x{W}, kernel={kernel}, {start}, "
+                            f"width={width}, negative={negative}")
+                    for name, g, r in zip(("MA", "MB"), out, ref):
+                        err["sweep_wavefront"] = max(
+                            err["sweep_wavefront"], float((g - r).abs().max()))
+                        check(torch.equal(g, r), f"wavefront sweep != plain "
+                              f"version ({name}; {what})")
+                    rel = abs(float(lb) - float(lb_ref)) / abs(float(lb_ref))
+                    check(rel <= 1e-5, f"wavefront sweep's bound {float(lb)} "
+                          f"vs {float(lb_ref)} ({what})")
+                    cases += 1
+                M = out
+            del sk, M, ref, out
         torch.cuda.empty_cache()
     return cases
 
@@ -700,33 +731,39 @@ def state_tensors(state):
 
 def banded_sweep_vs_plain(err: dict) -> int:
     """The fused sweep kernel against banded._sweep_steps(use_kernel=False):
-    one sweep from zero messages, one from the warm state."""
+    one sweep from zero messages, one from the warm state, at every job
+    width (SWEEP_WIDTHS), each from the same state as the plain sweep."""
     cases = 0
-    for (K, H, W, Bh, Bw) in BANDED_CASES:
+    for i, (K, H, W, Bh, Bw) in enumerate(BANDED_CASES):
+        negative = i in BANDED_NEGATIVE
         for kernel in (1, 2):
-            prob = [torch.as_tensor(a, device=DEV) for a in
-                    testing.trws_problem(K + H + kernel, K, H, W, np.float32)]
             spec = banded.BandedSpec(H, W, Bh, Bw)
-            bp = banded._BandedProblem(*prob, spec, kernel, 1.0)
+            bp = banded._BandedProblem(
+                *sweep_problem(K + H + kernel, K, H, W, negative), spec,
+                kernel, 1.0)
             state = banded.messages_to_state(
                 torch.zeros((4, K, H, W), device=DEV), bp)
             for start in ("zero", "warm"):
                 ref, lb_ref = banded._sweep_steps(bp, clone_state(state),
                                                   use_kernel=False)
-                state, lb = banded_kernel.sweep_banded(bp, state)
-                torch.cuda.synchronize()
-                what = f"K={K}, {H}x{W}, {Bh}x{Bw}, kernel={kernel}, {start}"
-                for (name, g), r in zip(state_tensors(state).items(),
-                                        state_tensors(ref).values()):
-                    err["sweep_banded"] = max(err["sweep_banded"],
-                                              float((g - r).abs().max()))
-                    check(torch.equal(g, r),
-                          f"fused sweep != plain version ({name}; {what})")
-                rel = abs(float(lb) - float(lb_ref)) / abs(float(lb_ref))
-                check(rel <= 1e-5, f"fused sweep's bound {float(lb)} vs "
-                      f"{float(lb_ref)} ({what})")
-                cases += 1
-            del prob, bp, state, ref
+                for width in SWEEP_WIDTHS:
+                    out, lb = banded_kernel.sweep_banded(
+                        bp, clone_state(state), width)
+                    torch.cuda.synchronize()
+                    what = (f"K={K}, {H}x{W}, {Bh}x{Bw}, kernel={kernel}, "
+                            f"{start}, width={width}, negative={negative}")
+                    for (name, g), r in zip(state_tensors(out).items(),
+                                            state_tensors(ref).values()):
+                        err["sweep_banded"] = max(err["sweep_banded"],
+                                                  float((g - r).abs().max()))
+                        check(torch.equal(g, r), f"fused sweep != plain "
+                              f"version ({name}; {what})")
+                    rel = abs(float(lb) - float(lb_ref)) / abs(float(lb_ref))
+                    check(rel <= 1e-5, f"fused sweep's bound {float(lb)} vs "
+                          f"{float(lb_ref)} ({what})")
+                    cases += 1
+                state = out
+            del bp, state, ref, out
         torch.cuda.empty_cache()
     return cases
 
@@ -2388,12 +2425,13 @@ def pair_bounds(K: int, pixels: int) -> dict:
 
 
 def time_wavefront_sweep(K: int, H: int, W: int, reps: int,
-                         plain: bool = True) -> dict:
-    """ms per sweep of the fused wavefront kernel and (``plain``) of its
-    plain version on a synthetic problem of the given shape; the sweeps
-    follow one another on one state (a sweep's work does not depend on the
-    data).  The work is a banded sweep's (8 sends per pixel, the same
-    arrays), hence its bounds."""
+                         plain: bool = True, width: int = 0) -> dict:
+    """ms per sweep of the fused wavefront kernel (phase-B job width
+    ``width``, 0: chosen a step) and (``plain``) of its plain version on a
+    synthetic problem of the given shape; the sweeps follow one another on
+    one state (a sweep's work does not depend on the data).  The work is a
+    banded sweep's (8 sends per pixel, the same arrays), hence its
+    bounds."""
     prob = [torch.as_tensor(a, device=DEV)
             for a in testing.synthetic_problem(K, H, W)]
     sk = wavefront._Skewed(*prob, 1, 8.0)
@@ -2402,7 +2440,7 @@ def time_wavefront_sweep(K: int, H: int, W: int, reps: int,
         torch.zeros((4, K, H, W), device=DEV), W)]
 
     def kernel_sweep():
-        state[0], _ = wavefront_kernel.sweep_wavefront(sk, state[0])
+        state[0], _ = wavefront_kernel.sweep_wavefront(sk, state[0], width)
 
     def plain_sweep():
         state[0], _ = wavefront._sweep_steps(sk, state[0], use_kernel=False)
@@ -2411,7 +2449,8 @@ def time_wavefront_sweep(K: int, H: int, W: int, reps: int,
     plain_ms = time_ms(plain_sweep, 2, warmup=0) if plain else None
     T = H + W - 1
     row = dict(ms=ms, plain_ms=plain_ms, us_per_step=ms * 1e3 / (2 * T),
-               shape=dict(K=K, H=H, W=W, T=T, steps=2 * T),
+               shape=dict(K=K, H=H, W=W, T=T, steps=2 * T), width=width,
+               grid=wavefront_kernel.sweep_wavefront.grid,
                **sweep_bounds(K, H * W))
     del sk, state
     torch.cuda.empty_cache()
@@ -2419,11 +2458,11 @@ def time_wavefront_sweep(K: int, H: int, W: int, reps: int,
 
 
 def time_banded_sweep(K: int, H: int, W: int, reps: int,
-                      plain: bool = True) -> dict:
-    """ms per sweep of the fused kernel and (``plain``) of its plain version
-    on a synthetic problem of the given shape, 128 x 128 blocks; the sweeps
-    follow one another on one state (a sweep's work does not depend on the
-    data)."""
+                      plain: bool = True, width: int = 0) -> dict:
+    """ms per sweep of the fused kernel (phase-B job width ``width``, 0:
+    chosen a step) and (``plain``) of its plain version on a synthetic
+    problem of the given shape, 128 x 128 blocks; the sweeps follow one
+    another on one state (a sweep's work does not depend on the data)."""
     prob = [torch.as_tensor(a, device=DEV)
             for a in testing.synthetic_problem(K, H, W)]
     spec = banded.BandedSpec(H, W, min(BAND, H), min(BAND, W))
@@ -2433,7 +2472,7 @@ def time_banded_sweep(K: int, H: int, W: int, reps: int,
         torch.zeros((4, K, H, W), device=DEV), bp)]
 
     def kernel_sweep():
-        state[0], _ = banded_kernel.sweep_banded(bp, state[0])
+        state[0], _ = banded_kernel.sweep_banded(bp, state[0], width)
 
     def plain_sweep():
         state[0], _ = banded._sweep_steps(bp, state[0], use_kernel=False)
@@ -2442,7 +2481,8 @@ def time_banded_sweep(K: int, H: int, W: int, reps: int,
     plain_ms = time_ms(plain_sweep, 2, warmup=0) if plain else None
     row = dict(ms=ms, plain_ms=plain_ms, us_per_step=ms * 1e3 / (2 * spec.T),
                shape=dict(K=K, H=H, W=W, Bh=spec.Bh, Bw=spec.Bw, T=spec.T,
-                          L=spec.L),
+                          L=spec.L), width=width,
+               grid=banded_kernel.sweep_banded.grid,
                **sweep_bounds(K, H * W))
     del bp, state
     torch.cuda.empty_cache()
@@ -2605,6 +2645,23 @@ def time_scanline_sweep(K: int, H: int, W: int, reps: int) -> dict:
                 **sweep_bounds(K, H * W))
 
 
+def sweep_rows(name: str, time_sweep, reps15: int, reps202: int) -> dict:
+    """A fused sweep at K = 15 on 370 x 413 (the shape of the baby2 pair;
+    synthetic data), where a step's fixed cost shows, and at teddy's
+    K = 202 (--grid-step 30), each printed as its own line and returned as
+    the ``kernels`` row's ``at_k15`` and ``at_k202`` (time, plain version's
+    time, bounds)."""
+    out = {}
+    for key, K, H, W, reps in (("at_k15", SIM_K, *SIM_SIZE, reps15),
+                               ("at_k202", K_WIDE, *EXPECT["size"], reps202)):
+        row = time_sweep(K, H, W, reps)
+        say(f"{name}_k{K}", **row)
+        out[key] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "bytes_ms", "ops_ms",
+                                        "us_per_step", "grid", "shape")}
+    return out
+
+
 def phase_timings(launches: dict, err: dict, smi: str) -> list:
     K, H, W = FULL
     rows = time_phase(K, H, W)
@@ -2670,9 +2727,8 @@ def phase_timings(launches: dict, err: dict, smi: str) -> list:
     # the fused sweep at the main path's shape, and at K = 15 on 370 x 413
     # (the shape of the baby2 pair; synthetic data) for the record, and at
     # teddy's K = 202 (--grid-step 30)
-    rows.append(dict(name="sweep_banded", **time_banded_sweep(K, H, W, 12)))
-    say("sweep_banded_k15", **time_banded_sweep(15, 370, 413, 12))
-    say("sweep_banded_k202", **time_banded_sweep(K_WIDE, H, W, 4))
+    rows.append(dict(name="sweep_banded", **time_banded_sweep(K, H, W, 12),
+                     **sweep_rows("sweep_banded", time_banded_sweep, 12, 4)))
     # the pair at the shape one direction of a full-grid phase gives it
     args = [torch.as_tensor(a, device=DEV)
             for a in testing.pair_inputs(1, K, H, W)]
@@ -2686,9 +2742,9 @@ def phase_timings(launches: dict, err: dict, smi: str) -> list:
     # the fused wavefront sweep at the main path's shape, and at K = 15 on
     # 370 x 413, which separates the per-step fixed cost from the arithmetic
     rows.append(dict(name="sweep_wavefront",
-                     **time_wavefront_sweep(K, H, W, 6)))
-    say("sweep_wavefront_k15", **time_wavefront_sweep(15, 370, 413, 6))
-    say("sweep_wavefront_k202", **time_wavefront_sweep(K_WIDE, H, W, 2))
+                     **time_wavefront_sweep(K, H, W, 6),
+                     **sweep_rows("sweep_wavefront", time_wavefront_sweep, 6,
+                                  2)))
     for r in rows:
         meta = KERNELS[r["name"]]
         r.update(route=meta["route"], source=meta["source"],

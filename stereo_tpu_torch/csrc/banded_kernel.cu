@@ -35,26 +35,35 @@
 // once (a larger grid is refused by the launch, it cannot hang), and its
 // blocks stride over a phase's tiles and jobs.
 //
-// A job is one send for a tile of 32 neighbouring lanes, done by a block of
-// 32 x target_blocks(K) threads (minplus.cuh::send_lane: at most 12 warps,
-// more than 96 labels in several passes), which stages the tile's K sources
-// in shared memory before it walks them (in global scratch when they do not
-// fit, so every K is taken).  Only lanes that hold a node at this step are
-// enumerated: in the skewed layout they are the contiguous range yb in
-// [max(0, t - Bw + 1), min(Bh - 1, t)], and a seam send touches one group of
-// nb lanes.
+// A job of phase B is one send for J neighbouring lanes, J in {32, 16, 8},
+// done by the whole block of 32 x target_blocks(K) threads
+// (minplus.cuh::send_job: J lanes x 32 blockDim.y / J slices of the
+// targets; at most 12 warps, more than 96 labels in several passes), which
+// stages the job's K sources in shared memory before it walks them (in
+// global scratch when they do not fit, so every K is taken).  Each step
+// takes the width whose jobs the resident grid runs soonest
+// (minplus.cuh::job_width): a thin step is cut into narrow jobs that reach
+// every block, a busy one keeps jobs whose rounds come out even.  The walk
+// takes the truncation out of the K^2 loop (send_job states the identity;
+// a lane with a < 0 walks the plain term).  Phase A keeps tiles of 32 lanes,
+// and a job waits for the tiles that cover its lanes' dependencies.  Only
+// lanes that hold a node at this step are enumerated: in the skewed layout
+// they are the contiguous range yb in [max(0, t - Bw + 1), min(Bh - 1, t)],
+// and a seam send touches one group of nb lanes.
 //
 // What bounds it: per sweep 8 sends x K^2 x 6 float32 instructions per pixel
 // against every live problem and message entry moved once per pass; at teddy
-// K = 79 the operations are the larger bound, 0.755 ms.  What one measured
-// on top (PERF.md) is a fixed cost of every one of the 2 T steps (15 us at
-// K = 15) -- the barriers over 132 blocks and chains of dependent global
-// round trips -- and the thin parallelism of a step (a few thousand
-// lane-sends for 132 SMs).  What the design does about the fixed cost:
+// K = 79 the operations are the larger bound, 0.755 ms (the issue floor of
+// four instructions a term, 1.0 ms).  What one measured on top (PERF.md) is
+// a fixed cost of every one of the 2 T steps (11 us at K = 15) -- the
+// barriers over the resident blocks and chains of dependent global round
+// trips -- and the thin parallelism of a step (a few thousand lane-sends
+// for 132 SMs), which the narrow jobs spread over the card.  What the design
+// does about the fixed cost:
 //   - one grid.sync() a step, after phase B.  Phase B waits for phase A of
 //     the same step through per-tile ready flags (release by the tile's
-//     block, acquire by the jobs that need the tile; sends_step states which
-//     tiles a job needs);
+//     block, acquire by the jobs that need the tile; sends_width states
+//     which tiles a job needs);
 //   - no load waits for another load: phase A issues all of a tile's
 //     loads at once (the seam buffers under the index part of their masks,
 //     the problem's part applied at the sum), and a phase-B job issues its
@@ -98,6 +107,7 @@ struct Params {
   double* lb;     // out [1]
   float* gstage;  // scratch: grid x stage_floats(K), or null (plan_stage)
   float tol;
+  int width;  // phase B's job width, or 0: chosen a step (sends_step)
   int K, Bh, Bw, Gy, Gx, nb, L, Lp, T;
 };
 
@@ -241,21 +251,59 @@ __device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE],
     belief_tile<BACKWARD>(P, t, tile, sm, epoch);
 }
 
-// Phase B of step t: the eight sends.  Heads are the group the pass writes at
-// column c (forward: A = (RT, DN); backward: B = (LT, UP)); tails are the
-// other group, written into column cn = c + 1 (forward) or c - 1 (backward).
+// The lanes of step t's phase B: heads at the step's live lanes [hlo, hhi),
+// tails at those of the step they write into [tlo, thi), x-seam sends on
+// the yb group xg, y-seam sends on the lane2 group yg (where they exist).
+struct StepLanes {
+  int hlo, hhi, tlo, thi, xg, yg;
+  bool xs, ys;
+};
+
+template <bool BACKWARD>
+__device__ __forceinline__ StepLanes step_lanes(const Params& P, int t) {
+  StepLanes s;
+  live_range(P, t, s.hlo, s.hhi);
+  live_range(P, BACKWARD ? t - 1 : t + 1, s.tlo, s.thi);
+  s.xg = BACKWARD ? t - (P.Bw - 1) : t;
+  s.yg = BACKWARD ? t - (P.Bh - 1) : t;
+  s.xs = s.xg >= 0 && s.xg < P.Bh;
+  s.ys = s.yg >= 0 && s.yg < P.Bw;
+  return s;
+}
+
+// Jobs of width J of each of the eight segments (heads d = 0, 1; tails
+// d = 0, 1; x-seam head, tail; y-seam head, tail); returns their sum.
+// ops/banded_kernel.py::step_jobs is the same enumeration.
+__device__ __forceinline__ int segment_jobs(const Params& P,
+                                            const StepLanes& s, int J,
+                                            int (&n)[8]) {
+  const int n_h = (s.hhi - s.hlo + J - 1) / J;
+  const int n_t = (s.thi - s.tlo + J - 1) / J;
+  const int n_nb = (P.nb + J - 1) / J;
+  n[0] = n[1] = n_h;
+  n[2] = n[3] = n_t;
+  n[4] = n[5] = s.xs ? n_nb : 0;
+  n[6] = n[7] = s.ys ? n_nb : 0;
+  return 2 * (n_h + n_t) + (s.xs ? 2 * n_nb : 0) + (s.ys ? 2 * n_nb : 0);
+}
+
+// Phase B of step t at job width J: the eight sends, one job a send for J
+// lanes.  Heads are the group the pass writes at column c (forward: A =
+// (RT, DN); backward: B = (LT, UP)); tails are the other group, written
+// into column cn = c + 1 (forward) or c - 1 (backward).
 //
-// A job waits for the phase-A tiles of the step that cover the lanes of
-// this rule (ops/banded_kernel.py::wait_lanes is the same rule, and
-// tests/test_torch_any_k.py checks it against the plain version's index
-// maps), l0 the first lane of the job's tile in its segment's lane space:
-//   head-sends (seg 0, 1)    [l0, l0 + 32)           gD read, own lane
-//   tail-sends (seg 2, 3)    forward  [l0 - nb, l0 + 32)
-//                            backward [l0, l0 + 32 + nb)
+// A job waits for the phase-A tiles (of TILE lanes) of the step that cover
+// the lanes of this rule (ops/banded_kernel.py::wait_lanes is the same rule,
+// and tests/test_torch_any_k.py checks it against the plain version's index
+// maps at every width), l0 the first lane of the job in its segment's lane
+// space:
+//   head-sends (seg 0, 1)    [l0, l0 + J)            gD read, own lane
+//   tail-sends (seg 2, 3)    forward  [l0 - nb, l0 + J)
+//                            backward [l0, l0 + J + nb)
 //                            gD at l and l -/+ nb; the message written at
 //                            lane l is read by phase A at lane l (d = 0)
 //                            and l -/+ nb (d = 1)
-//   x-seam sends (seg 4, 5)  [l0 - 1, l0 + 33)      gD at l, l -/+ 1; phase A
+//   x-seam sends (seg 4, 5)  [l0 - 1, l0 + J + 1)    gD at l, l -/+ 1; phase A
 //                            reads Sx* at l and l -/+ 1
 //   y-seam sends (seg 6, 7)  every tile of the step
 // clipped to the step's live lanes.  So phase B reads gD only once it is
@@ -264,9 +312,9 @@ __device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE],
 // never waits, and every block is resident (a cooperative launch refuses a
 // grid that is not), so every flag a job waits for is published: no
 // deadlock.
-template <int KERNEL, bool BACKWARD, bool SMEM>
-__device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
-                           float* stage, int epoch) {
+template <int KERNEL, bool BACKWARD, bool SMEM, int J>
+__device__ void sends_width(const Params& P, int t, const StepLanes& s,
+                            float2 (*sm)[TILE], float* stage, int epoch) {
   const int K = P.K, L = P.L, Lp = P.Lp, nb = P.nb, Gx = P.Gx, c = t + 1;
   const int cn = BACKWARD ? c - 1 : c + 1;
   const long long KL = (long long)K * L;
@@ -295,37 +343,29 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
   const float* Pyt_q = BACKWARD ? P.PyU_q : P.PyD_q;
   const float* Pyt_d0 = BACKWARD ? P.PyU_d0 : P.PyD_d0;
   const float* Pyt_a = BACKWARD ? P.PyU_a : P.PyD_a;
-
-  int hlo, hhi, tlo, thi;
-  live_range(P, t, hlo, hhi);
-  live_range(P, BACKWARD ? t - 1 : t + 1, tlo, thi);
-  // x-seam sends act on the yb group xg, y-seam sends on the lane2 group yg
-  const int xg = BACKWARD ? t - (P.Bw - 1) : t;
-  const int yg = BACKWARD ? t - (P.Bh - 1) : t;
+  const int hlo = s.hlo, hhi = s.hhi, tlo = s.tlo, thi = s.thi;
+  const int xg = s.xg, yg = s.yg;
   // lane of the y-seam node in the step's column: group 0 or group Bh - 1
   const int ybase = BACKWARD ? (P.Bh - 1) * nb : 0;
-  const int n_h = tiles(hhi - hlo), n_t = tiles(thi - tlo);
-  const int n_x = (xg >= 0 && xg < P.Bh) ? tiles(nb) : 0;
-  const int n_y = (yg >= 0 && yg < P.Bw) ? tiles(nb) : 0;
-  const int n_seg[8] = {n_h, n_h, n_t, n_t, n_x, n_x, n_y, n_y};
-  const int njobs = 2 * (n_h + n_t + n_x + n_y);
+  int n_seg[8];
+  const int njobs = segment_jobs(P, s, J, n_seg);
 
   for (int job = blockIdx.x; job < njobs; job += gridDim.x) {
     int seg = 0, tile = job;
     while (tile >= n_seg[seg]) tile -= n_seg[seg++];
-    const int i = tile * TILE + threadIdx.x;
+    const int i = tile * J + job_lane<J>();
     // the lanes of the step's phase A this job waits for (see above)
     int wlo = hlo, whi = hhi;
     if (seg < 2) {
-      wlo = hlo + tile * TILE;
-      whi = wlo + TILE;
+      wlo = hlo + tile * J;
+      whi = wlo + J;
     } else if (seg < 4) {
-      const int l0 = tlo + tile * TILE;
+      const int l0 = tlo + tile * J;
       wlo = BACKWARD ? l0 : l0 - nb;
-      whi = BACKWARD ? l0 + TILE + nb : l0 + TILE;
+      whi = BACKWARD ? l0 + J + nb : l0 + J;
     } else if (seg < 6) {
-      wlo = xg * nb + tile * TILE - 1;
-      whi = wlo + TILE + 2;
+      wlo = xg * nb + tile * J - 1;
+      whi = wlo + J + 2;
     }
     wlo = max(wlo, hlo);
     whi = min(whi, hhi);
@@ -434,15 +474,37 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
       }
     }
     // the bound's slot was last written by an earlier step: read it now
+    // (one thread a lane)
     double* lb_slot = P.lbacc + (1 + seg) * (long long)Lp + acc_lane;
-    const double lb_old =
-        BACKWARD && in && threadIdx.y == 0 ? __ldcg(lb_slot) : 0.0;
-    const float vmin = send_lane<KERNEL, true, SMEM>(
+    const bool lead = job_lead<J>();
+    const double lb_old = BACKWARD && in && lead ? __ldcg(lb_slot) : 0.0;
+    const float vmin = send_job<KERNEL, SMEM, J>(
         in, active, g, L, m, m_stride, xt, xt_stride, ys, ys_stride, a, P.tol,
         K, m, m_stride, sm, stage, wait);
-    if (BACKWARD && active && threadIdx.y == 0)
-      *lb_slot = lb_old + (double)vmin;
+    if (BACKWARD && active && lead) *lb_slot = lb_old + (double)vmin;
   }
+}
+
+// Phase B of step t: its job width (P.width, or job_width's choice from the
+// step's jobs at each width and the resident grid; the same in every block),
+// then its jobs.
+template <int KERNEL, bool BACKWARD, bool SMEM>
+__device__ void sends_step(const Params& P, int t, float2 (*sm)[TILE],
+                           float* stage, int epoch) {
+  const StepLanes s = step_lanes<BACKWARD>(P, t);
+  int J = P.width;
+  if (J == 0) {
+    int n[8], jobs[N_WIDTHS];
+    for (int w = 0; w < N_WIDTHS; ++w)
+      jobs[w] = segment_jobs(P, s, TILE >> w, n);
+    J = job_width(jobs, gridDim.x, P.K, target_passes(P.K), blockDim.y);
+  }
+  if (J == TILE)
+    sends_width<KERNEL, BACKWARD, SMEM, TILE>(P, t, s, sm, stage, epoch);
+  else if (J == TILE / 2)
+    sends_width<KERNEL, BACKWARD, SMEM, TILE / 2>(P, t, s, sm, stage, epoch);
+  else
+    sends_width<KERNEL, BACKWARD, SMEM, MIN_JOB>(P, t, s, sm, stage, epoch);
 }
 
 template <int KERNEL, bool SMEM>
@@ -450,6 +512,8 @@ __global__ void __launch_bounds__(TILE * MAX_TB)
     banded_sweep_kernel(const Params P) {
   __shared__ float sm[MAX_TB][TILE];
   __shared__ double red[MAX_TB * TILE];
+  // phase B's reductions share `red`, which only the bound's sum uses
+  float2(*sm2)[TILE] = reinterpret_cast<float2(*)[TILE]>(red);
   extern __shared__ float smem_stage[];
   float* stage = SMEM ? smem_stage
                       : P.gstage + (long long)blockIdx.x * stage_floats(P.K);
@@ -473,12 +537,12 @@ __global__ void __launch_bounds__(TILE * MAX_TB)
   // phase B after phase A
   for (int t = 0; t < P.T; ++t) {
     beliefs_step<false>(P, t, sm, 1 + t);
-    sends_step<KERNEL, false, SMEM>(P, t, sm, stage, 1 + t);
+    sends_step<KERNEL, false, SMEM>(P, t, sm2, stage, 1 + t);
     grid.sync();
   }
   for (int t = P.T - 1; t >= 0; --t) {
     beliefs_step<true>(P, t, sm, 2 * P.T - t);
-    sends_step<KERNEL, true, SMEM>(P, t, sm, stage, 2 * P.T - t);
+    sends_step<KERNEL, true, SMEM>(P, t, sm2, stage, 2 * P.T - t);
     grid.sync();
   }
 
@@ -498,19 +562,24 @@ __global__ void __launch_bounds__(TILE * MAX_TB)
   }
 }
 
+// The grid: no more blocks than the busiest step has jobs 32 lanes wide (but
+// one an SM at least: narrower jobs reach them), and no more than are
+// resident at once (the cooperative launch refuses a larger grid).  A grid
+// of as many blocks as the busiest step has jobs of 8 lanes was 1.1% slower
+// at K = 15 and the same from K = 79 (PERF.md has the times).
 template <int KERNEL>
 cudaError_t launch(Params P, float* scratch, long long scratch_floats,
-                   long long* need, cudaStream_t st) {
+                   long long* need, int* grid, cudaStream_t st) {
   dim3 block(TILE, target_blocks(P.K));
-  // no more blocks than the largest step has jobs, and no more than are
-  // resident at once (the cooperative launch refuses a larger grid)
+  const int busiest = 4 * (tiles(P.L) + 1) + 4 * tiles(P.nb);
   StagePlan plan;
   cudaError_t err = plan_stage(
       (const void*)banded_sweep_kernel<KERNEL, true>,
       (const void*)banded_sweep_kernel<KERNEL, false>, 0, P.K,
-      block.x * block.y, 4 * (tiles(P.L) + 1) + 4 * tiles(P.nb), true, &plan);
+      block.x * block.y, busiest, true, &plan);
   if (err != cudaSuccess || scratch_short(plan, scratch_floats, need))
     return err;
+  *grid = plan.grid;
   P.gstage = scratch;
   void* args[] = {(void*)&P};
   err = cudaLaunchCooperativeKernel(plan.fn, dim3(plan.grid), block, args,
@@ -522,13 +591,14 @@ cudaError_t launch(Params P, float* scratch, long long scratch_floats,
 }  // namespace
 
 // ptrs: P_COUNT device pointers in the order of enum Ptr (a host array);
-// dims: {K, Bh, Bw, Gy, Gx}; scratch, scratch_floats, need: the staging
-// hand-shake of minplus.cuh::scratch_short.  Returns 0 or the CUDA error
-// code.
+// dims: {K, Bh, Bw, Gy, Gx}; width: phase B's job width (32, 16 or 8), or 0
+// to choose it a step (minplus.cuh::job_width); scratch, scratch_floats,
+// need: the staging hand-shake of minplus.cuh::scratch_short; grid: out, the
+// blocks of the launch.  Returns 0 or the CUDA error code.
 extern "C" int banded_sweep_f32(const void* const* ptrs, const int* dims,
-                                float tol, int kernel, float* scratch,
-                                long long scratch_floats, long long* need,
-                                void* stream) {
+                                float tol, int kernel, int width,
+                                float* scratch, long long scratch_floats,
+                                long long* need, int* grid, void* stream) {
   Params P;
 #define FP(i) ((const float*)ptrs[i])
 #define MP(i) ((float*)ptrs[i])
@@ -549,7 +619,10 @@ extern "C" int banded_sweep_f32(const void* const* ptrs, const int* dims,
 #undef FP
 #undef MP
 #undef BP
+  if (width != 0 && width != TILE && width != TILE / 2 && width != MIN_JOB)
+    return (int)cudaErrorInvalidValue;
   P.tol = tol;
+  P.width = width;
   P.K = dims[0]; P.Bh = dims[1]; P.Bw = dims[2]; P.Gy = dims[3];
   P.Gx = dims[4];
   P.nb = P.Gy * P.Gx;
@@ -558,6 +631,6 @@ extern "C" int banded_sweep_f32(const void* const* ptrs, const int* dims,
   P.T = P.Bh + P.Bw - 1;
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(kernel == 1
-                   ? launch<1>(P, scratch, scratch_floats, need, st)
-                   : launch<2>(P, scratch, scratch_floats, need, st));
+                   ? launch<1>(P, scratch, scratch_floats, need, grid, st)
+                   : launch<2>(P, scratch, scratch_floats, need, grid, st));
 }

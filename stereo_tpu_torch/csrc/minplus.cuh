@@ -20,14 +20,15 @@ __device__ __forceinline__ float trunc_cost(float q, float d0, float tol) {
   return fminf(c, tol);
 }
 
-// A column send is done by a thread block of TILE x blockDim.y threads:
-// threadIdx.x is the lane within a tile of TILE neighbouring lanes (label
-// planes are contiguous along lanes, so a warp reads 128 contiguous bytes of
-// every plane), threadIdx.y the block of KT targets whose running minima the
-// thread keeps in registers.  A block has at most MAX_TB warps (a thread of
-// the fused sweeps holds about 140 registers, and twelve such warps fill a
-// multiprocessor's 65,536); K > MAX_TB * KT labels take several passes, pass
-// p giving thread y the targets (p * blockDim.y + y) * KT + [0, KT).
+// The fused sweeps' thread block is TILE x blockDim.y threads: phase A
+// gives threadIdx.x a lane of a tile of TILE neighbouring lanes (label planes
+// are contiguous along lanes, so a warp reads 128 contiguous bytes of every
+// plane) and threadIdx.y a share of the labels; phase B's jobs (send_job)
+// are J lanes wide, J in {32, 16, 8}, and spread the same threads over the J
+// lanes and the targets.  A block has at most MAX_TB warps (a thread of the
+// fused sweeps holds 168 registers, and twelve such warps fill a
+// multiprocessor's 65,536); a pass holds blockDim.y * KT targets of every
+// lane, and K > MAX_TB * KT labels take several passes.
 constexpr int TILE = 32;
 constexpr int KT = 8;
 constexpr int MAX_TB = 12;
@@ -69,8 +70,24 @@ __device__ __forceinline__ float block_min_over_y(float v,
   return m;
 }
 
-// The staging area of one block: two [K][TILE] float planes (send_lane: the
-// source heights and positions; the pair kernel: R and H_B).  It lies in
+// The minima over threadIdx.y of both parts of `v` at once, per threadIdx.x,
+// through `sm` ([MAX_TB][TILE] float2): two barriers for two minima.  The
+// same contract as block_min_over_y.
+__device__ __forceinline__ float2 block_min2_over_y(float2 v,
+                                                    float2 (*sm)[TILE]) {
+  sm[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  float2 m = sm[0][threadIdx.x];
+  for (int y = 1; y < (int)blockDim.y; ++y) {
+    const float2 w = sm[y][threadIdx.x];
+    m = make_float2(fminf(m.x, w.x), fminf(m.y, w.y));
+  }
+  __syncthreads();
+  return m;
+}
+
+// The staging area of one block: two [K][TILE] float planes (send_job: the
+// source heights and positions of up to TILE lanes).  It lies in
 // dynamic shared memory when it fits the block (SMEM; K up to 800-900 on an
 // H100, by kernel), else in a slice of a global scratch buffer that the
 // wrapper hands in (stage_floats(K) floats per block; plan_stage below
@@ -104,11 +121,6 @@ __device__ __forceinline__ void stage_wait() {
   }
 }
 
-// send_lane's default wait: nothing to wait for.
-struct NoWait {
-  __device__ __forceinline__ void operator()() const {}
-};
-
 // Release and acquire at device scope, for the fused sweeps' per-tile ready
 // flags: phase A's tile publishes the step's epoch with a release store
 // after a __syncthreads() (so every thread's writes of the tile come
@@ -126,7 +138,7 @@ __device__ __forceinline__ int load_acquire(const int* p) {
   return v;
 }
 
-// send_lane's wait in the fused sweeps' phase B: the lanes of warp 0 poll
+// send_job's wait in the fused sweeps' phase B: the lanes of warp 0 poll
 // the flags of phase-A tiles first .. last of the step, one flag each (32
 // at a time), until all have published the step's epoch; then the block
 // passes a barrier.  Nothing to wait for when last < first.
@@ -146,102 +158,204 @@ struct TileWait {
   }
 };
 
-// One send for the lane of the calling thread, done together by the
-// blockDim.y threads that share threadIdx.x:
+// Phase B's job widths, widest first: a job is one send for J neighbouring
+// lanes, J = TILE >> i for i < N_WIDTHS.  JOB_FIXED is what a job costs
+// besides its walk (its wait, the round trip of its staging, its barriers
+// and writes), counted in warp-terms: a walk is passes x K x KT J / TILE
+// terms a thread in each of the block's warps, and an SM issues about one
+// warp-term a cycle, so JOB_FIXED is about a microsecond; job_width weighs
+// the two.
+constexpr int N_WIDTHS = 3;
+constexpr int MIN_JOB = TILE >> (N_WIDTHS - 1);
+constexpr int JOB_FIXED = 2048;
+
+// The job width of a step of phase B: the width whose jobs the resident
+// grid runs in the least time, rounds(J) x (walk(J) + JOB_FIXED) with
+// rounds(J) = ceil(jobs[i] / grid) for J = TILE >> i; a tie goes to the
+// narrower width.  So a thin step is cut into narrower jobs wherever they
+// reach idle blocks without a further round (a step of up to grid / 2 jobs
+// TILE lanes wide always is), and a busy step takes the width whose rounds
+// come out even.  (Cutting every step of fewer jobs than blocks, a further
+// round or not, was 5-10% slower on the banded sweep: PERF.md.)
+// ops/minplus.py::job_width is the same rule.
+__host__ __device__ inline int job_width(const int (&jobs)[N_WIDTHS],
+                                         int grid, int K, int passes,
+                                         int warps) {
+  int best = TILE;
+  long long best_cost = -1;
+  for (int i = 0; i < N_WIDTHS; ++i) {
+    const int J = TILE >> i;
+    const int rounds = (jobs[i] + grid - 1) / grid;
+    const long long cost =
+        rounds * ((long long)passes * K * (KT * J / TILE) * warps +
+                  JOB_FIXED);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = J;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// acc[u] = min(acc[u], h + a * c(x[u], y)) over the K staged (h, y) pairs
+// of a lane (`stride` float2 apart), c the hoisted |x - y|^KERNEL (HOIST) or
+// the truncated cost TR.  A term is sub, mul (|.| is an operand modifier),
+// add, min with HOIST: four issued instructions (kernel 2: five, the square
+// is a mul); one more, the truncation's min, without.
+template <int KERNEL, bool HOIST, int N>
+__device__ __forceinline__ void walk(const float2* hy, int stride, int K,
+                                     const float (&x)[N], float a, float tol,
+                                     float (&acc)[N]) {
+#pragma unroll 4
+  for (int s = 0; s < K; ++s) {
+    const float2 v = hy[s * stride];
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      float c;
+      if (HOIST) {
+        const float d = x[u] - v.y;
+        c = (KERNEL == 1) ? fabsf(d) : d * d;
+      } else {
+        c = trunc_cost<KERNEL>(x[u], v.y, tol);
+      }
+      acc[u] = fminf(acc[u], v.x + a * c);
+    }
+  }
+}
+
+// Thread (x, y) of the block in a job of J lanes: lane x % J of the job and
+// target slice y * (TILE / J) + x / J of blockDim.y * TILE / J; a slice
+// holds KT * J / TILE targets a pass, so a pass covers blockDim.y * KT
+// targets of every lane at every width.
+template <int J>
+__device__ __forceinline__ int job_lane() {
+  return threadIdx.x % J;
+}
+template <int J>
+__device__ __forceinline__ bool job_lead() {  // the lane's slice 0
+  return threadIdx.y == 0 && threadIdx.x < J;
+}
+
+// One send for the job's lane of the calling thread, done together by the
+// blockDim.y * TILE / J threads of that lane (its slices):
 //
 //   out[t] = min_s ( h[s] + a * TR(xt[t] - ys[s]) ) - vmin,   t, s < K
 //   vmin   = min_t of the un-normalised out[t]
-//   h[s]   = g[s] - m[s]   (SUB)   or   g[s]   (!SUB)
+//   h[s]   = g[s] - m[s]
 //
 // All pointers are already offset to the lane; label planes are `*_stride`
 // floats apart.  `in`: the lane's addresses are valid, so its loads are
 // issued; `active` (implies `in`): the send is real, it is walked, takes
 // part in vmin and writes `out`.  A thread with neither takes part in the
-// barriers only.  Returns vmin (of an active lane).
+// barriers and shuffles only.  Returns vmin (of an active lane).
+//
+// The truncation is taken out of the K^2 walk.  Rounding is monotone, so for
+// a >= 0 (-0.0 included) fl(a min(c, tol)) = min(fl(a c), fl(a tol)) and
+// fl(h + min(A, B)) = min(fl(h + A), fl(h + B)); hence
+//
+//   out[t] + vmin = min( min_s (h[s] + a |xt[t] - ys[s]|^KERNEL), far ),
+//   far           = min_s (h[s] + a tol),
+//
+// the same bits, with `far` formed by the threads that stage h (K terms a
+// lane, not a term of the walk).  A lane whose `a >= 0.0f` is false (a < 0,
+// or a NaN) walks the plain term, truncation inside; the branch is per lane
+// and uniform on every solver path, whose weights are >= 0.
 //
 // The loads come in the order of what they wait for:
 //   1. the problem's: the source positions ys into the staging area
 //      (stage_copy, asynchronous in shared memory) and the first pass's
 //      targets xt into registers;
 //   2. wait(): a block-wide wait of the caller's for the state that g and m
-//      hold (the fused sweeps' per-tile ready flags, TileWait; NoWait
-//      elsewhere) -- the problem loads above are in flight meanwhile;
+//      hold (the fused sweeps' per-tile ready flags, TileWait) -- the
+//      problem loads above are in flight meanwhile;
 //   3. the state's: h = g - m into the staging area, through L2 (__ldcg:
 //      g and m may have been written by other blocks of the same launch,
 //      and the non-coherent read-only path must not serve them).
-// Then one barrier, and every pass walks the K staged sources once.  `out`
-// may alias `m` (an in-place message update): every source is read before
-// that barrier, every target written after it.  Earlier passes write their
-// sums un-normalised and correct them once vmin is known (min is exact, so
-// the result does not depend on the passes).
-template <int KERNEL, bool SUB, bool SMEM, typename Wait = NoWait>
-__device__ __forceinline__ float send_lane(
+// The staging area holds the job's [K][J] (h, y) pairs, so a slice reads a
+// source's pair with one 64-bit load and a warp's slices share it.  Then
+// one barrier, and every pass walks the K staged sources once.  `out` may
+// alias `m` (an in-place message update): every source is read before that
+// barrier, every target written after it.  Earlier passes write their sums
+// un-normalised and correct them once vmin is known (min is exact, so the
+// result does not depend on the passes).  far and vmin are reduced over a
+// lane's slices by shuffles within a warp, then across warps through `sm`.
+template <int KERNEL, bool SMEM, int J, typename Wait>
+__device__ __forceinline__ float send_job(
     bool in, bool active, const float* g, long long g_stride,
     const float* m, long long m_stride, const float* __restrict__ xt,
     long long xt_stride, const float* __restrict__ ys, long long ys_stride,
     float a, float tol, int K, float* out, long long out_stride,
-    float (*sm)[TILE], float* stage, Wait wait = Wait()) {
-  const int ny = blockDim.y, npass = target_passes(K);
-  float* hS = stage + threadIdx.x;             // [K][TILE] source heights
-  float* yS = stage + K * TILE + threadIdx.x;  // [K][TILE] source positions
-  float x[KT];
-  float acc[KT];
+    float2 (*sm)[TILE], float* stage, Wait wait) {
+  constexpr int N = KT * J / TILE;  // targets of a slice in a pass
+  const int slices = blockDim.y * (TILE / J);
+  const int slice = threadIdx.y * (TILE / J) + threadIdx.x / J;
+  const int npass = target_passes(K);
+  float2* hy = reinterpret_cast<float2*>(stage) + job_lane<J>();
+  const bool hoist = a >= 0.0f;  // false for a < 0 (and a NaN)
+  const float at = hoist ? a * tol : CUDART_INF_F;
+  float x[N];
+  float acc[N];
   if (in) {
-    for (int s = threadIdx.y; s < K; s += ny)
-      stage_copy<SMEM>(yS + s * TILE, ys + s * ys_stride);
-    const int t0 = threadIdx.y * KT;  // < K: blockDim.y <= ceil(K / KT)
+    for (int s = slice; s < K; s += slices)
+      stage_copy<SMEM>(&hy[s * J].y, ys + s * ys_stride);
+    const int t0 = slice * N;
 #pragma unroll
-    for (int u = 0; u < KT; ++u)
+    for (int u = 0; u < N; ++u)
       x[u] = xt[min(t0 + u, K - 1) * xt_stride];  // ragged: target K-1 again
   }
   wait();
+  float far = CUDART_INF_F;  // this thread's part of min_s h[s] + a tol
   if (in) {
 #pragma unroll 4
-    for (int s = threadIdx.y; s < K; s += ny) {
-      float h = __ldcg(g + s * g_stride);
-      if (SUB) h = h - __ldcg(m + s * m_stride);
-      hS[s * TILE] = h;
+    for (int s = slice; s < K; s += slices) {
+      const float h = __ldcg(g + s * g_stride) - __ldcg(m + s * m_stride);
+      hy[s * J].x = h;
+      far = fminf(far, h + at);
     }
   }
   stage_wait<SMEM>();
   __syncthreads();
   float part = CUDART_INF_F;
   for (int p = 0; p < npass; ++p) {
-    const int t0 = (p * ny + threadIdx.y) * KT;
-    if (!active || t0 >= K) continue;  // t0 is uniform over a warp
+    const int t0 = (p * slices + slice) * N;
+    if (!active || t0 >= K) continue;
     if (p > 0) {
 #pragma unroll
-      for (int u = 0; u < KT; ++u) x[u] = xt[min(t0 + u, K - 1) * xt_stride];
+      for (int u = 0; u < N; ++u) x[u] = xt[min(t0 + u, K - 1) * xt_stride];
     }
 #pragma unroll
-    for (int u = 0; u < KT; ++u) acc[u] = CUDART_INF_F;
-    for (int s = 0; s < K; ++s) {
-      float h = hS[s * TILE];
-      float y = yS[s * TILE];
+    for (int u = 0; u < N; ++u) acc[u] = CUDART_INF_F;
+    if (hoist)
+      walk<KERNEL, true>(hy, J, K, x, a, tol, acc);
+    else
+      walk<KERNEL, false>(hy, J, K, x, a, tol, acc);
 #pragma unroll
-      for (int u = 0; u < KT; ++u) {
-        float term = a * trunc_cost<KERNEL>(x[u], y, tol);
-        acc[u] = fminf(acc[u], h + term);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < KT; ++u) part = fminf(part, acc[u]);
+    for (int u = 0; u < N; ++u) part = fminf(part, acc[u]);
     if (p + 1 < npass) {
 #pragma unroll
-      for (int u = 0; u < KT; ++u)
+      for (int u = 0; u < N; ++u)
         if (t0 + u < K) out[(t0 + u) * out_stride] = acc[u];
     }
   }
-  float vmin = block_min_over_y(part, sm);
+  // (far, vmin) of the lane: over its slices in the warp, then the warps
+  float2 v = make_float2(far, fminf(part, far));
+#pragma unroll
+  for (int o = J; o < TILE; o *= 2) {
+    v.x = fminf(v.x, __shfl_xor_sync(0xffffffffu, v.x, o));
+    v.y = fminf(v.y, __shfl_xor_sync(0xffffffffu, v.y, o));
+  }
+  v = block_min2_over_y(v, sm);
+  far = v.x;
+  const float vmin = v.y;
   if (active) {
     for (int p = 0; p < npass; ++p) {
-      const int t0 = (p * ny + threadIdx.y) * KT;
+      const int t0 = (p * slices + slice) * N;
       if (t0 >= K) continue;
 #pragma unroll
-      for (int u = 0; u < KT; ++u) {
+      for (int u = 0; u < N; ++u) {
         if (t0 + u < K) {
           float* o = out + (t0 + u) * out_stride;
-          *o = (p + 1 < npass ? *o : acc[u]) - vmin;
+          *o = fminf(p + 1 < npass ? *o : acc[u], far) - vmin;
         }
       }
     }
@@ -254,10 +368,11 @@ __device__ __forceinline__ float send_lane(
 // `fn_g` in global scratch, a slice of stage_floats(K) a block.  The shared
 // form is taken whenever the device lets one block have extra +
 // stage_bytes(K) beside the kernel's static shared memory.  The grid is
-// `jobs` blocks (one job a block), but no more than are resident at once
-// where the launch is `persistent` (cooperative) or stages in scratch (the
-// kernels then loop over their jobs), so the scratch is bounded by the
-// device, not the work.
+// `jobs` blocks (one job a block; a `persistent` launch, whose jobs can be
+// cut narrower, takes one block an SM at least), but no more than are
+// resident at once where the launch is `persistent` (cooperative) or stages
+// in scratch (the kernels then loop over their jobs), so the scratch is
+// bounded by the device, not the work.
 struct StagePlan {
   const void* fn;      // fn_s or fn_g
   size_t dyn;          // its dynamic shared memory
@@ -289,7 +404,7 @@ inline cudaError_t plan_stage(const void* fn_s, const void* fn_g,
         p->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->dyn);
     if (err != cudaSuccess) return err;
   }
-  long long grid = jobs;
+  long long grid = persistent && jobs < sms ? sms : jobs;
   if (persistent || !smem) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->fn,
                                                         threads, p->dyn);

@@ -31,28 +31,34 @@
 // once (a larger grid is refused by the launch, it cannot hang), and its
 // blocks stride over a phase's tiles and jobs.
 //
-// A job is one send for a tile of 32 neighbouring lanes, done by a block of
-// 32 x target_blocks(K) threads (minplus.cuh::send_lane; at most 12 warps,
-// more than 96 labels in several passes, so every K is taken).  Only lanes
-// that hold a pixel at a step are visited: y in [max(0, t - W + 1),
-// min(H - 1, t)].  Every other lane of a column is padding whose masks are
-// zero and whose messages stay zero, so skipping it changes nothing.
+// A job of phase B is one send for J neighbouring lanes, J in {32, 16, 8},
+// done by the whole block of 32 x target_blocks(K) threads
+// (minplus.cuh::send_job: J lanes x 32 blockDim.y / J slices of the
+// targets; at most 12 warps, more than 96 labels in several passes, so
+// every K is taken), with the truncation taken out of the K^2 walk for
+// a >= 0.  Each step takes the width whose jobs the resident grid runs
+// soonest (minplus.cuh::job_width): a step of this schedule has at most
+// 4 x ceil(min(H, W) / 32) jobs 32 lanes wide, 48 at teddy, so narrower
+// jobs reach the SMs those leave idle.  Only lanes that hold a pixel at a
+// step are visited: y in [max(0, t - W + 1), min(H - 1, t)].  Every other
+// lane of a column is padding whose masks are zero and whose messages stay
+// zero, so skipping it changes nothing.
 //
 // What bounds it: per sweep 8 sends x K^2 x 6 float32 instructions per pixel
 // against every live problem and message entry moved once per pass; at teddy
-// K = 79 the operations are the larger bound, 0.755 ms.  What one measures
-// on top (PERF.md) is a fixed cost of every one of the 2 T steps -- grid
-// barriers over the resident blocks and chains of dependent global round
-// trips -- and the thin parallelism of a step (at most
-// 4 x ceil(min(H, W) / 32) jobs for 132 SMs).  What the design does about
-// the fixed cost, as csrc/banded_kernel.cu does (kernel 6 is kernel 5
-// without seams):
+// K = 79 the operations are the larger bound, 0.755 ms (the issue floor of
+// four instructions a term, 1.0 ms).  What one measures on top (PERF.md) is
+// a fixed cost of every one of the 2 T steps -- grid barriers over the
+// resident blocks and chains of dependent global round trips -- and the
+// thin parallelism of a step, which the narrow jobs spread over the card.
+// What the design does about the fixed cost, as csrc/banded_kernel.cu does
+// (kernel 6 is kernel 5 without seams):
 //   - one grid.sync() a step, after phase B: the tail-sends of step t write
 //     the column that step t + 1's beliefs read, and step t + 1's beliefs
 //     overwrite the gD that step t's sends read.  Within a step, phase B
 //     waits for phase A through per-tile ready flags: the tile's block
 //     publishes the step's epoch with a release store, and a job acquires
-//     the flags of the tiles it needs (sends_step states the rule) -- but
+//     the flags of the tiles it needs (sends_width states the rule) -- but
 //     not of a tile its own block wrote in this step's phase A: the
 //     __syncthreads() that ends belief_tile already ordered that one, and
 //     the blocks that run phase A are the last to reach phase B;
@@ -95,6 +101,7 @@ struct Params {
   double* lb;      // out [1]
   float* gstage;   // scratch: grid x stage_floats(K), or null (plan_stage)
   float tol;
+  int width;  // phase B's job width, or 0: chosen a step (sends_step)
   int K, H, W, T;
 };
 
@@ -211,28 +218,39 @@ __device__ void beliefs_step(const Params& P, int t, float (*sm)[TILE],
     belief_tile<BACKWARD>(P, t, tile, sm, epoch);
 }
 
-// Phase B of step t: the four sends.  Heads are the group the pass writes at
-// column c (forward: A = (RT, DN); backward: B = (LT, UP)); tails are the
-// other group, written into column cn = c + 1 (forward) or c - 1 (backward).
+// Jobs of width J of step t's phase B: 2 ceil((hhi - hlo) / J) head-sends
+// (the step's live lanes) and 2 ceil((thi - tlo) / J) tail-sends (those of
+// the step they write into).  ops/wavefront_kernel.py::step_jobs is the same
+// enumeration.
+__device__ __forceinline__ int step_jobs(int hlo, int hhi, int tlo, int thi,
+                                         int J) {
+  return 2 * ((hhi - hlo + J - 1) / J) + 2 * ((thi - tlo + J - 1) / J);
+}
+
+// Phase B of step t at job width J: the four sends, one job a send for J
+// lanes.  Heads are the group the pass writes at column c (forward: A =
+// (RT, DN); backward: B = (LT, UP)); tails are the other group, written
+// into column cn = c + 1 (forward) or c - 1 (backward).
 //
-// A job waits for the phase-A tiles of the step that cover the lanes of
-// this rule (ops/wavefront_kernel.py::wait_lanes is the same rule, and
-// tests/test_torch_wavefront.py checks it against the plain version's
-// index maps), l0 the first lane of the job's tile:
-//   head-sends    [l0, l0 + 32)       gD read at its own lane; the message
+// A job waits for the phase-A tiles (of TILE lanes) of the step that cover
+// the lanes of this rule (ops/wavefront_kernel.py::wait_lanes is the same
+// rule, and tests/test_torch_wavefront.py checks it against the plain
+// version's index maps at every width), l0 the first lane of the job:
+//   head-sends    [l0, l0 + J)        gD read at its own lane; the message
 //                                     written at lane l is read by phase A
 //                                     at lane l
-//   tail-sends    forward  [l0 - 1, l0 + 32)
-//                 backward [l0, l0 + 33)
+//   tail-sends    forward  [l0 - 1, l0 + J)
+//                 backward [l0, l0 + J + 1)
 //                                     gD at l and l -/+ 1; the message
 //                                     written at lane l is read by phase A
 //                                     at lane l (d = 0) and l -/+ 1 (d = 1:
 //                                     Bp1[o + 1], Am1[o - 1] in belief_tile)
 // clipped to the step's live lanes.  So phase B reads gD only once it is
 // written, and overwrites a message only once phase A has read it.
-template <int KERNEL, bool BACKWARD, bool SMEM>
-__device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
-                           float* stage, int epoch) {
+template <int KERNEL, bool BACKWARD, bool SMEM, int J>
+__device__ void sends_width(const Params& P, int t, int hlo, int hhi,
+                            int tlo, int thi, float2 (*sm)[TILE],
+                            float* stage, int epoch) {
   const int K = P.K, H = P.H, c = t + 1;
   const int cn = BACKWARD ? c - 1 : c + 1;
   const long long KH = (long long)K * H;
@@ -244,11 +262,7 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
   const float* Qt = BACKWARD ? P.QA : P.QB;
   const float* at = BACKWARD ? P.aA : P.aB;
   const float* vt = BACKWARD ? P.vA : P.vB;
-
-  int hlo, hhi, tlo, thi;
-  live_range(P, t, hlo, hhi);
-  live_range(P, BACKWARD ? t - 1 : t + 1, tlo, thi);
-  const int n_h = tiles(hhi - hlo), n_t = tiles(thi - tlo);
+  const int n_h = (hhi - hlo + J - 1) / J, n_t = (thi - tlo + J - 1) / J;
   const int njobs = 2 * (n_h + n_t);
 
   for (int job = blockIdx.x; job < njobs; job += gridDim.x) {
@@ -257,13 +271,13 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
     const int n_seg = head ? n_h : n_t;
     const int d = rest / n_seg;  // direction within the group
     const int tile = rest - d * n_seg;
-    const int l0 = (head ? hlo : tlo) + tile * TILE;
-    const int l = l0 + threadIdx.x;
+    const int l0 = (head ? hlo : tlo) + tile * J;
+    const int l = l0 + job_lane<J>();
     // the phase-A tiles of the step that this job waits for (see above);
     // a tile that this block wrote itself needs no flag: the
     // __syncthreads() that ends belief_tile ordered it before the job
     const int wlo = max(head || BACKWARD ? l0 : l0 - 1, hlo);
-    const int whi = min(head || !BACKWARD ? l0 + TILE : l0 + TILE + 1, hhi);
+    const int whi = min(head || !BACKWARD ? l0 + J : l0 + J + 1, hhi);
     const int first = (wlo - hlo) / TILE;
     int last = wlo < whi ? (whi - 1 - hlo) / TILE : -1;
     bool own = true;
@@ -305,15 +319,42 @@ __device__ void sends_step(const Params& P, int t, float (*sm)[TILE],
       }
     }
     // the bound's slot was last written by an earlier step: read it now
+    // (one thread a lane)
     double* lb_slot = P.lbacc + (1 + (head ? 0 : 2) + d) * (long long)H + l;
-    const double lb_old =
-        BACKWARD && in && threadIdx.y == 0 ? __ldcg(lb_slot) : 0.0;
-    const float vmin = send_lane<KERNEL, true, SMEM>(
+    const bool lead = job_lead<J>();
+    const double lb_old = BACKWARD && in && lead ? __ldcg(lb_slot) : 0.0;
+    const float vmin = send_job<KERNEL, SMEM, J>(
         in, active, g, H, m, H, xt, H, ys, H, a, P.tol, K, m, H, sm, stage,
         wait);
-    if (BACKWARD && active && threadIdx.y == 0)
-      *lb_slot = lb_old + (double)vmin;
+    if (BACKWARD && active && lead) *lb_slot = lb_old + (double)vmin;
   }
+}
+
+// Phase B of step t: its job width (P.width, or job_width's choice from the
+// step's jobs at each width and the resident grid; the same in every block),
+// then its jobs.
+template <int KERNEL, bool BACKWARD, bool SMEM>
+__device__ void sends_step(const Params& P, int t, float2 (*sm)[TILE],
+                           float* stage, int epoch) {
+  int hlo, hhi, tlo, thi;
+  live_range(P, t, hlo, hhi);
+  live_range(P, BACKWARD ? t - 1 : t + 1, tlo, thi);
+  int J = P.width;
+  if (J == 0) {
+    int jobs[N_WIDTHS];
+    for (int w = 0; w < N_WIDTHS; ++w)
+      jobs[w] = step_jobs(hlo, hhi, tlo, thi, TILE >> w);
+    J = job_width(jobs, gridDim.x, P.K, target_passes(P.K), blockDim.y);
+  }
+  if (J == TILE)
+    sends_width<KERNEL, BACKWARD, SMEM, TILE>(P, t, hlo, hhi, tlo, thi, sm,
+                                              stage, epoch);
+  else if (J == TILE / 2)
+    sends_width<KERNEL, BACKWARD, SMEM, TILE / 2>(P, t, hlo, hhi, tlo, thi,
+                                                  sm, stage, epoch);
+  else
+    sends_width<KERNEL, BACKWARD, SMEM, MIN_JOB>(P, t, hlo, hhi, tlo, thi, sm,
+                                                 stage, epoch);
 }
 
 // __launch_bounds__: ptxas then takes 80 registers (and spills ~88 bytes);
@@ -323,6 +364,8 @@ __global__ void __launch_bounds__(TILE * MAX_TB)
     wavefront_sweep_kernel(const Params P) {
   __shared__ float sm[MAX_TB][TILE];
   __shared__ double red[MAX_TB * TILE];
+  // phase B's reductions share `red`, which only the bound's sum uses
+  float2(*sm2)[TILE] = reinterpret_cast<float2(*)[TILE]>(red);
   extern __shared__ float smem_stage[];
   float* stage = SMEM ? smem_stage
                       : P.gstage + (long long)blockIdx.x * stage_floats(P.K);
@@ -346,12 +389,12 @@ __global__ void __launch_bounds__(TILE * MAX_TB)
   // phase B after phase A
   for (int t = 0; t < P.T; ++t) {
     beliefs_step<false>(P, t, sm, 1 + t);
-    sends_step<KERNEL, false, SMEM>(P, t, sm, stage, 1 + t);
+    sends_step<KERNEL, false, SMEM>(P, t, sm2, stage, 1 + t);
     grid.sync();
   }
   for (int t = P.T - 1; t >= 0; --t) {
     beliefs_step<true>(P, t, sm, 2 * P.T - t);
-    sends_step<KERNEL, true, SMEM>(P, t, sm, stage, 2 * P.T - t);
+    sends_step<KERNEL, true, SMEM>(P, t, sm2, stage, 2 * P.T - t);
     grid.sync();
   }
 
@@ -371,20 +414,26 @@ __global__ void __launch_bounds__(TILE * MAX_TB)
   }
 }
 
+// The grid: no more blocks than the widest step has jobs of the narrowest
+// width, and no more than are resident at once (the cooperative launch
+// refuses a larger grid).  At K = 15 that is 188 blocks at 370 x 413,
+// 3.6% faster than one an SM; from K = 79 one block an SM is resident
+// (PERF.md has the times).
+
 template <int KERNEL>
 cudaError_t launch(Params P, float* scratch, long long scratch_floats,
-                   long long* need, cudaStream_t st) {
+                   long long* need, int* grid, cudaStream_t st) {
   dim3 block(TILE, target_blocks(P.K));
-  // no more blocks than the widest step has jobs, and no more than are
-  // resident at once (the cooperative launch refuses a larger grid)
   const int widest = P.H < P.W ? P.H : P.W;
   StagePlan plan;
   cudaError_t err = plan_stage(
       (const void*)wavefront_sweep_kernel<KERNEL, true>,
       (const void*)wavefront_sweep_kernel<KERNEL, false>, 0, P.K,
-      block.x * block.y, 4 * tiles(widest), true, &plan);
+      block.x * block.y, 4 * ((widest + MIN_JOB - 1) / MIN_JOB), true,
+      &plan);
   if (err != cudaSuccess || scratch_short(plan, scratch_floats, need))
     return err;
+  *grid = plan.grid;
   P.gstage = scratch;
   void* args[] = {(void*)&P};
   err = cudaLaunchCooperativeKernel(plan.fn, dim3(plan.grid), block, args,
@@ -396,12 +445,14 @@ cudaError_t launch(Params P, float* scratch, long long scratch_floats,
 }  // namespace
 
 // ptrs: P_COUNT device pointers in the order of enum Ptr (a host array);
-// dims: {K, H, W}; scratch, scratch_floats, need: the staging hand-shake of
-// minplus.cuh::scratch_short.  Returns 0 or the CUDA error code.
+// dims: {K, H, W}; width: phase B's job width (32, 16 or 8), or 0 to choose
+// it a step (minplus.cuh::job_width); scratch, scratch_floats, need: the
+// staging hand-shake of minplus.cuh::scratch_short; grid: out, the blocks
+// of the launch.  Returns 0 or the CUDA error code.
 extern "C" int wavefront_sweep_f32(const void* const* ptrs, const int* dims,
-                                   float tol, int kernel, float* scratch,
-                                   long long scratch_floats, long long* need,
-                                   void* stream) {
+                                   float tol, int kernel, int width,
+                                   float* scratch, long long scratch_floats,
+                                   long long* need, int* grid, void* stream) {
   Params P;
 #define FP(i) ((const float*)ptrs[i])
   P.theta = FP(P_THETA); P.D0 = FP(P_D0); P.QA = FP(P_QA); P.QB = FP(P_QB);
@@ -412,11 +463,14 @@ extern "C" int wavefront_sweep_f32(const void* const* ptrs, const int* dims,
   P.gD = (float*)ptrs[P_GD];
   P.lbacc = (double*)ptrs[P_LBACC]; P.lb = (double*)ptrs[P_LB];
   P.flags = (int*)ptrs[P_FLAGS];
+  if (width != 0 && width != TILE && width != TILE / 2 && width != MIN_JOB)
+    return (int)cudaErrorInvalidValue;
   P.tol = tol;
+  P.width = width;
   P.K = dims[0]; P.H = dims[1]; P.W = dims[2];
   P.T = P.H + P.W - 1;
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(kernel == 1
-                   ? launch<1>(P, scratch, scratch_floats, need, st)
-                   : launch<2>(P, scratch, scratch_floats, need, st));
+                   ? launch<1>(P, scratch, scratch_floats, need, grid, st)
+                   : launch<2>(P, scratch, scratch_floats, need, grid, st));
 }

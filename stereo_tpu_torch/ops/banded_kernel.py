@@ -24,7 +24,11 @@ the load.  A step is two phases (beliefs, then the eight sends) and one
 grid-wide barrier, after the sends; a send job waits only for the tiles of
 beliefs it needs, through per-tile ready flags (``wait_lanes`` states the
 rule, tests/test_torch_any_k.py checks it), and issues its problem loads
-before it waits.  The kernel is persistent and launched cooperatively, so a
+before it waits.  A send job is J = 32, 16 or 8 lanes wide: each step takes
+the width whose jobs the resident grid runs soonest (``step_jobs`` counts
+them, ``minplus.job_width`` chooses), so a thin step is cut into narrow
+jobs that reach every block; the walk takes the truncation out of the K^2
+loop for a >= 0.  The kernel is persistent and launched cooperatively, so a
 grid that could not be resident at once is refused by the launch instead of
 hanging.  Only the lanes that hold a node at a step are visited, and a seam
 send touches one group of nb lanes.  Built with ``-fmad=false``: messages and
@@ -39,7 +43,8 @@ no library yardstick.  PERF.md has the times.
 
 The wrapper takes the plain version only when the problem lies on the CPU;
 for a CUDA problem it launches the kernel or raises.
-``sweep_banded.launches`` counts kernel launches.
+``sweep_banded.launches`` counts kernel launches; ``sweep_banded.grid`` is
+the last launch's number of blocks.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ import ctypes
 import torch
 
 from stereo_tpu_torch.ops._launch import check_tensor, launch_staged
-from stereo_tpu_torch.ops.minplus import TILE
+from stereo_tpu_torch.ops.minplus import TILE, check_width
 
 # the bound's accumulators of the kernel: the node term and the eight sends
 LB_SLOTS = 9
@@ -69,7 +74,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     library."""
     ptr = ctypes.c_void_p
     lib.banded_sweep_f32.argtypes = [ptr, ptr, ctypes.c_float, ctypes.c_int,
-                                     ptr, ctypes.c_longlong, ptr, ptr]
+                                     ctypes.c_int, ptr, ctypes.c_longlong,
+                                     ptr, ptr, ptr]
     lib.banded_sweep_f32.restype = ctypes.c_int
     return lib
 
@@ -108,39 +114,58 @@ def live_lanes(spec, t: int) -> tuple[int, int]:
             (min(spec.Bh - 1, t) + 1) * spec.nb)
 
 
-def wait_lanes(spec, t: int, backward: bool, seg: int,
-               tile: int) -> tuple[int, int]:
-    """Lanes [lo, hi) of step t's phase A that job (seg, tile) of phase B
-    waits for: it reads their gD, or overwrites a message that their beliefs
-    read.  The rule of csrc/banded_kernel.cu::sends_step, clipped to the
-    step's live lanes."""
+def step_jobs(spec, t: int, backward: bool, J: int) -> list[int]:
+    """Jobs J lanes wide of each of step t's eight phase-B segments (heads
+    d = 0, 1; tails d = 0, 1; x-seam head, tail; y-seam head, tail), as
+    csrc/banded_kernel.cu::segment_jobs counts them; job j of the step is
+    ``minplus.job_at(step_jobs(..), j)``."""
+    n = lambda lanes: -(-lanes // J)
+    hlo, hhi = live_lanes(spec, t)
+    tlo, thi = live_lanes(spec, t - 1 if backward else t + 1)
+    xg = t - (spec.Bw - 1) if backward else t
+    yg = t - (spec.Bh - 1) if backward else t
+    n_x = n(spec.nb) if 0 <= xg < spec.Bh else 0
+    n_y = n(spec.nb) if 0 <= yg < spec.Bw else 0
+    return [n(hhi - hlo)] * 2 + [n(thi - tlo)] * 2 + [n_x] * 2 + [n_y] * 2
+
+
+def wait_lanes(spec, t: int, backward: bool, seg: int, tile: int,
+               J: int = TILE) -> tuple[int, int]:
+    """Lanes [lo, hi) of step t's phase A that job (seg, tile) of phase B,
+    J lanes wide, waits for: it reads their gD, or overwrites a message that
+    their beliefs read.  The rule of csrc/banded_kernel.cu::sends_width,
+    clipped to the step's live lanes (the kernel waits for the tiles of 32
+    lanes that cover them)."""
     nb = spec.nb
     hlo, hhi = live_lanes(spec, t)
     if seg < 2:  # head-sends: own lane
-        lo = hlo + tile * TILE
-        hi = lo + TILE
+        lo = hlo + tile * J
+        hi = lo + J
     elif seg < 4:  # tail-sends: own lane and the vertical neighbour
-        l0 = live_lanes(spec, t - 1 if backward else t + 1)[0] + tile * TILE
-        lo, hi = (l0, l0 + TILE + nb) if backward else (l0 - nb, l0 + TILE)
+        l0 = live_lanes(spec, t - 1 if backward else t + 1)[0] + tile * J
+        lo, hi = (l0, l0 + J + nb) if backward else (l0 - nb, l0 + J)
     elif seg < 6:  # x-seam sends: the lanes either side
         xg = t - (spec.Bw - 1) if backward else t
-        lo = xg * nb + tile * TILE - 1
-        hi = lo + TILE + 2
+        lo = xg * nb + tile * J - 1
+        hi = lo + J + 2
     else:  # y-seam sends: every tile
         lo, hi = hlo, hhi
     return max(lo, hlo), min(hi, hhi)
 
 
-def sweep_banded(bp, state):
+def sweep_banded(bp, state, width: int = 0):
     """One banded sweep (forward + backward) -> (state, lower bound).
 
     bp: a ``solvers.banded._BandedProblem``; state: ``(MA, MB, (SxL, SxR,
-    SyU, SyD))`` in that module's shapes.
+    SyU, SyD))`` in that module's shapes; width: phase B's job width (32,
+    16 or 8 lanes), or 0 for the kernel's choice a step (the results are the
+    same bits at every width).
 
     CUDA problem: float32, contiguous state on the problem's device; one
     cooperative kernel launch on the current stream, no synchronisation; the
     state's tensors are overwritten and returned.  CPU problem: the plain
     version."""
+    check_width("sweep_banded", width)
     if not bp.theta.is_cuda:
         from stereo_tpu_torch.solvers import banded
 
@@ -164,12 +189,16 @@ def sweep_banded(bp, state):
         *(t.data_ptr() for t in tensors), gD.data_ptr(), lbacc.data_ptr(),
         flags.data_ptr(), lb.data_ptr())
     dims = (ctypes.c_int * 5)(K, spec.Bh, spec.Bw, spec.Gy, spec.Gx)
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         launch_staged("sweep_banded", lambda *scratch: lib.banded_sweep_f32(
-            ptrs, dims, float(bp.tol), int(bp.kernel), *scratch, stream), dev)
+            ptrs, dims, float(bp.tol), int(bp.kernel), int(width), *scratch,
+            ctypes.byref(grid), stream), dev)
     sweep_banded.launches += 1
+    sweep_banded.grid = grid.value
     return state, lb.to(torch.float32)
 
 
 sweep_banded.launches = 0
+sweep_banded.grid = 0

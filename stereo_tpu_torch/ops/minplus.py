@@ -82,13 +82,17 @@ import torch
 from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.ops._launch import check_tensor, launch_failed
 
-# the cooperative send of the fused sweeps (csrc/minplus.cuh::send_lane,
-# kernels 5 and 6) splits the K targets into blocks of KT over threadIdx.y: a
-# thread block is TILE lanes x target_blocks(K) warps, at most MAX_TB; more
-# than MAX_TB * KT labels take several passes
+# the fused sweeps (kernels 5 and 6) run a thread block of TILE lanes x
+# target_blocks(K) warps, at most MAX_TB; a pass of their send
+# (csrc/minplus.cuh::send_job) holds target_blocks(K) * KT targets of every
+# lane of a job, and more than MAX_TB * KT labels take several passes.  A
+# phase-B job is J lanes wide, J in JOB_WIDTHS; JOB_FIXED is what a job
+# costs besides its walk, in warp-terms (job_width)
 TILE = 32
 KT = 8
 MAX_TB = 12
+JOB_WIDTHS = (32, 16, 8)
+JOB_FIXED = 2048
 # problems of one minplus_send_many launch at most (csrc/minplus_send.cu)
 MAX_PROBLEMS = 8
 
@@ -100,6 +104,66 @@ def target_blocks(K: int) -> int:
     blocks = -(-K // KT)
     passes = -(-blocks // MAX_TB)
     return -(-blocks // passes)
+
+
+def target_passes(K: int) -> int:
+    """Passes of a fused sweep's send over the K targets
+    (csrc/minplus.cuh's ``target_passes``)."""
+    blocks = -(-K // KT)
+    return -(-blocks // target_blocks(K))
+
+
+def job_width(jobs, grid: int, K: int) -> int:
+    """The job width of a step of a fused sweep's phase B
+    (csrc/minplus.cuh::job_width): ``jobs[i]`` are the step's jobs at width
+    ``JOB_WIDTHS[i]``; the width whose jobs ``grid`` resident blocks run in
+    the least time, rounds x (walk + JOB_FIXED) in warp-terms (a walk:
+    passes x K x KT J / TILE terms a thread, times the block's warps), a
+    tie to the narrower."""
+    best, best_cost = TILE, None
+    for J, n in zip(JOB_WIDTHS, jobs):
+        walk = target_passes(K) * K * (KT * J // TILE) * target_blocks(K)
+        cost = -(-n // grid) * (walk + JOB_FIXED)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = J, cost
+    return best
+
+
+def check_width(fn: str, width: int):
+    """Raise unless ``width`` is a job width of the fused sweeps or 0 (the
+    kernel chooses one a step)."""
+    if width != 0 and width not in JOB_WIDTHS:
+        raise ValueError(f"{fn}: job width {width}, expected 0 or one of "
+                         f"{JOB_WIDTHS}")
+
+
+def job_threads(K: int, J: int) -> list[tuple[int, list[int]]]:
+    """(lane of the job, its targets over all passes) of every thread of a
+    fused sweep's block in a job of J lanes, in the order of
+    csrc/minplus.cuh::send_job: thread (x, y) holds lane x % J and slice
+    y * (TILE / J) + x / J, KT * J / TILE targets of it a pass."""
+    ny = target_blocks(K)
+    per, n = TILE // J, KT * J // TILE
+    slices = ny * per
+    out = []
+    for y in range(ny):
+        for x in range(TILE):
+            sl = y * per + x // J
+            out.append((x % J, [
+                t for p in range(target_passes(K))
+                for t in range((p * slices + sl) * n, (p * slices + sl + 1) * n)
+                if t < K]))
+    return out
+
+
+def job_at(n_seg, job: int) -> tuple[int, int]:
+    """(segment, tile) of job ``job`` of a fused sweep's step whose segments
+    have ``n_seg`` jobs each, enumerated segment by segment."""
+    seg, tile = 0, job
+    while tile >= n_seg[seg]:
+        tile -= n_seg[seg]
+        seg += 1
+    return seg, tile
 
 
 def minplus_pair_ref(H_A, H_B, P, R, alpha, tol, kernel: int):

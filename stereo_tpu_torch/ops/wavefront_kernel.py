@@ -28,7 +28,12 @@ guard before the load.  A step is two phases (beliefs, then the four sends)
 and one grid-wide barrier, after the sends; a send job waits only for the
 tiles of beliefs it needs, through per-tile ready flags (``wait_lanes``
 states the rule, tests/test_torch_wavefront.py checks it), and issues its
-problem loads before it waits.  The kernel is persistent and launched
+problem loads before it waits.  A send job is J = 32, 16 or 8 lanes wide:
+each step takes the width whose jobs the resident grid runs soonest
+(``step_jobs`` counts them, ``minplus.job_width`` chooses), so the thin
+steps of this schedule (at most 4 x ceil(min(H, W) / 32) jobs 32 lanes
+wide) reach more blocks; the walk takes the truncation out of the K^2 loop
+for a >= 0.  The kernel is persistent and launched
 cooperatively, so a grid that could not be resident at once is refused by the
 launch instead of hanging.  Only the lanes that hold a pixel at a step are
 visited.  Built with ``-fmad=false``: messages equal the plain version's bit
@@ -43,7 +48,8 @@ PERF.md has the times.
 
 The wrapper takes the plain version only when the problem lies on the CPU;
 for a CUDA problem it launches the kernel or raises.
-``sweep_wavefront.launches`` counts kernel launches.
+``sweep_wavefront.launches`` counts kernel launches;
+``sweep_wavefront.grid`` is the last launch's number of blocks.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ import ctypes
 import torch
 
 from stereo_tpu_torch.ops._launch import check_tensor, launch_staged
-from stereo_tpu_torch.ops.minplus import TILE
+from stereo_tpu_torch.ops.minplus import TILE, check_width
 
 # the least number of anti-diagonals: one, a grid of a single pixel
 MIN_T = 1
@@ -72,8 +78,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     library."""
     ptr = ctypes.c_void_p
     lib.wavefront_sweep_f32.argtypes = [ptr, ptr, ctypes.c_float,
-                                        ctypes.c_int, ptr, ctypes.c_longlong,
-                                        ptr, ptr]
+                                        ctypes.c_int, ctypes.c_int, ptr,
+                                        ctypes.c_longlong, ptr, ptr, ptr]
     lib.wavefront_sweep_f32.restype = ctypes.c_int
     return lib
 
@@ -112,33 +118,46 @@ def live_lanes(H: int, W: int, t: int) -> tuple[int, int]:
     return max(0, t - W + 1), min(H - 1, t) + 1
 
 
+def step_jobs(H: int, W: int, t: int, backward: bool, J: int) -> list[int]:
+    """Jobs J lanes wide of each of step t's four phase-B segments (heads
+    d = 0, 1 at the step's live lanes; tails d = 0, 1 at those of the step
+    they write into), as csrc/wavefront_kernel.cu::sends_width enumerates
+    them; job j of the step is ``minplus.job_at(step_jobs(..), j)``."""
+    hlo, hhi = live_lanes(H, W, t)
+    tlo, thi = live_lanes(H, W, t - 1 if backward else t + 1)
+    return [-(-(hhi - hlo) // J)] * 2 + [-(-(thi - tlo) // J)] * 2
+
+
 def wait_lanes(H: int, W: int, t: int, backward: bool, seg: int,
-               tile: int) -> tuple[int, int]:
-    """Lanes [lo, hi) of step t's phase A that job (seg, tile) of phase B
-    waits for: it reads their gD, or overwrites a message that their beliefs
-    read.  seg 0, 1: the head-sends (directions d = 0, 1); seg 2, 3: the
-    tail-sends.  The rule of csrc/wavefront_kernel.cu::sends_step, clipped
-    to the step's live lanes.  (The kernel acquires no flag for a tile that
-    the job's own block wrote: its block barrier already orders it.)"""
+               tile: int, J: int = TILE) -> tuple[int, int]:
+    """Lanes [lo, hi) of step t's phase A that job (seg, tile) of phase B,
+    J lanes wide, waits for: it reads their gD, or overwrites a message that
+    their beliefs read.  seg 0, 1: the head-sends (directions d = 0, 1); seg
+    2, 3: the tail-sends.  The rule of csrc/wavefront_kernel.cu::
+    sends_width, clipped to the step's live lanes (the kernel waits for the
+    tiles of 32 lanes that cover them, and acquires no flag for a tile that
+    the job's own block wrote: its block barrier already orders it)."""
     hlo, hhi = live_lanes(H, W, t)
     if seg < 2:  # head-sends: own lane
-        lo = hlo + tile * TILE
-        hi = lo + TILE
+        lo = hlo + tile * J
+        hi = lo + J
     else:  # tail-sends: own lane and the vertical neighbour
-        l0 = live_lanes(H, W, t - 1 if backward else t + 1)[0] + tile * TILE
-        lo, hi = (l0, l0 + TILE + 1) if backward else (l0 - 1, l0 + TILE)
+        l0 = live_lanes(H, W, t - 1 if backward else t + 1)[0] + tile * J
+        lo, hi = (l0, l0 + J + 1) if backward else (l0 - 1, l0 + J)
     return max(lo, hlo), min(hi, hhi)
 
 
-def sweep_wavefront(sk, M):
+def sweep_wavefront(sk, M, width: int = 0):
     """One raster-order sweep (forward + backward) -> (state, lower bound).
 
     sk: a ``solvers.wavefront._Skewed``; M: ``(MA, MB)`` in that module's
-    shapes.
+    shapes; width: phase B's job width (32, 16 or 8 lanes), or 0 for the
+    kernel's choice a step (the results are the same bits at every width).
 
     CUDA problem: float32, contiguous state on the problem's device; one
     cooperative kernel launch on the current stream, no synchronisation; MA
     and MB are overwritten and returned.  CPU problem: the plain version."""
+    check_width("sweep_wavefront", width)
     if not sk.theta.is_cuda:
         from stereo_tpu_torch.solvers import wavefront
 
@@ -159,14 +178,18 @@ def sweep_wavefront(sk, M):
         *(t.data_ptr() for t in tensors), gD.data_ptr(), lbacc.data_ptr(),
         flags.data_ptr(), lb.data_ptr())
     dims = (ctypes.c_int * 3)(K, H, W)
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         launch_staged("sweep_wavefront", lambda *scratch:
                       lib.wavefront_sweep_f32(ptrs, dims, float(sk.tol),
-                                              int(sk.kernel), *scratch,
+                                              int(sk.kernel), int(width),
+                                              *scratch, ctypes.byref(grid),
                                               stream), dev)
     sweep_wavefront.launches += 1
+    sweep_wavefront.grid = grid.value
     return (MA, MB), lb.to(torch.float32)
 
 
 sweep_wavefront.launches = 0
+sweep_wavefront.grid = 0

@@ -10,10 +10,11 @@ CPU, float64, the same numpy inputs for both packages.
 - DispMapNCC simultaneous fusion on the banded schedule at K = 97 against
   the JAX model on the same proposals: labels equal, energy rtol 1e-9.
 - ``ops/banded_kernel.py::wait_lanes`` (the rule csrc/banded_kernel.cu's
-  sends_step waits by) checked by brute force against the plain version's
+  sends_width waits by) checked by brute force against the plain version's
   own index maps: every gD lane a written send reads, and every lane of
   phase A that reads a message a send overwrites, lies in the job's wait
-  set, for every step, pass, segment and tile of six BandedSpecs."""
+  set, for every step, pass, segment and tile of six BandedSpecs, at every
+  job width (32, 16 and 8 lanes)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +27,6 @@ from stereo_tpu.solvers import wavefront as j_wf
 from stereo_tpu_torch import testing
 from stereo_tpu_torch.models.ncc import DispMapNCC as TDispMapNCC
 from stereo_tpu_torch.ops import banded_kernel as t_bk
-from stereo_tpu_torch.ops.minplus import TILE
 from stereo_tpu_torch.solvers import banded as t_banded
 from stereo_tpu_torch.solvers import wavefront as t_wf
 
@@ -99,26 +99,11 @@ SPECS = [(8, 10, 4, 5), (9, 70, 3, 2), (40, 47, 8, 16), (48, 40, 8, 8),
          (70, 12, 16, 5), (20, 9, 2, 3)]
 
 
-def _send_jobs(spec, t, backward):
-    """Tiles of each of phase B's eight segments at step t (heads d = 0, 1;
-    tails d = 0, 1; x-seam head, tail; y-seam head, tail), as
-    csrc/banded_kernel.cu::sends_step counts them."""
-    tiles = lambda n: -(-n // TILE)
-    hlo, hhi = t_bk.live_lanes(spec, t)
-    tlo, thi = t_bk.live_lanes(spec, t - 1 if backward else t + 1)
-    xg = t - (spec.Bw - 1) if backward else t
-    yg = t - (spec.Bh - 1) if backward else t
-    n_h, n_t = tiles(hhi - hlo), tiles(thi - tlo)
-    n_x = tiles(spec.nb) if 0 <= xg < spec.Bh else 0
-    n_y = tiles(spec.nb) if 0 <= yg < spec.Bw else 0
-    return [n_h, n_h, n_t, n_t, n_x, n_x, n_y, n_y]
-
-
-def _job_targets(spec, t, backward, seg, tile):
-    """Target lanes of job (seg, tile) in its segment's lane space (the
-    enumeration of csrc/banded_kernel.cu::sends_step): column lanes for the
-    interior and x-seam sends, lane2 for the y-seam sends."""
-    nb, i = spec.nb, tile * TILE + np.arange(TILE)
+def _job_targets(spec, t, backward, seg, tile, J):
+    """Target lanes of job (seg, tile), J lanes wide, in its segment's lane
+    space (the enumeration of csrc/banded_kernel.cu::sends_width): column
+    lanes for the interior and x-seam sends, lane2 for the y-seam sends."""
+    nb, i = spec.nb, tile * J + np.arange(J)
     if seg < 2:
         lo, hi = t_bk.live_lanes(spec, t)
     elif seg < 4:
@@ -223,8 +208,9 @@ def _readers(pbp, t, backward, what, d):
             for k in range(K) if hit[k].any()}
 
 
+@pytest.mark.parametrize("J", [32, 16, 8])
 @pytest.mark.parametrize("H,W,Bh,Bw", SPECS)
-def test_wait_rule_covers_every_dependency(H, W, Bh, Bw, monkeypatch):
+def test_wait_rule_covers_every_dependency(H, W, Bh, Bw, J, monkeypatch):
     spec = t_banded.BandedSpec(H, W, Bh, Bw)
     problem = lambda K: testing.trws_problem(0, K, H, W)
     # the stepped problem (2 labels) and the probe problem (one label per
@@ -239,13 +225,14 @@ def test_wait_rule_covers_every_dependency(H, W, Bh, Bw, monkeypatch):
             written = _written(spec, t, backward, new)
             lo, hi = t_bk.live_lanes(spec, t)
             readers = {}
-            for seg, n in enumerate(_send_jobs(spec, t, backward)):
+            for seg, n in enumerate(t_bk.step_jobs(spec, t, backward, J)):
                 what, d, lanes = written[seg]
                 if (what, d) not in readers:
                     readers[what, d] = _readers(pbp, t, backward, what, d)
                 for tile in range(n):
-                    wlo, whi = t_bk.wait_lanes(spec, t, backward, seg, tile)
-                    for x in _job_targets(spec, t, backward, seg, tile):
+                    wlo, whi = t_bk.wait_lanes(spec, t, backward, seg, tile,
+                                               J)
+                    for x in _job_targets(spec, t, backward, seg, tile, J):
                         if x not in lanes:
                             continue  # not written: an inactive lane
                         ls = int(src[seg][x]) - 1
@@ -257,7 +244,7 @@ def test_wait_rule_covers_every_dependency(H, W, Bh, Bw, monkeypatch):
                                                     where, r)
                         checked += 1
                     written[seg][2].difference_update(
-                        _job_targets(spec, t, backward, seg, tile))
+                        _job_targets(spec, t, backward, seg, tile, J))
             # every written lane belongs to some job of its segment
             assert all(not w[2] for w in written.values()), written
     assert checked > 0

@@ -378,6 +378,43 @@ def test_pair_kernel_hoist_cases_on_card(cuda, K, H, W, kernel, tol,
         assert torch.equal(g, r)
 
 
+def _negate_third(prob, seed):
+    """The problem with the weights of a third of the pixels negated: their
+    lanes walk the plain term, the others the hoisted one."""
+    theta, D0, Q, alphas = prob
+    rng = np.random.default_rng(seed)
+    flip = torch.as_tensor(rng.uniform(0, 1, alphas.shape[1:]) < 1 / 3,
+                           device=alphas.device)
+    return theta, D0, Q, torch.where(flip[None], -alphas, alphas)
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("width", [0, 32, 16, 8])
+@pytest.mark.parametrize("K,H,W,Bh,Bw", [
+    (3, 8, 10, 4, 5), (15, 40, 47, 8, 16), (15, 96, 128, 32, 32),
+    (97, 48, 40, 8, 8), (202, 10, 11, 5, 4)])
+def test_banded_sweep_widths_on_card(cuda, K, H, W, Bh, Bw, width,
+                                     negative):
+    """Each phase-B job width, forced (32, 16, 8) and chosen a step (0),
+    from one state as the plain sweep: messages and seam arrays bit for
+    bit, the bound to float32 rounding; both smoothness kernels, two
+    sweeps."""
+    for kernel in (1, 2):
+        prob, bp, state = _banded_problem(cuda, K, H, W, Bh, Bw, kernel)
+        if negative:
+            bp = t_banded._BandedProblem(*_negate_third(prob, K + H),
+                                         bp.spec, kernel, 1.0)
+        for _ in range(2):
+            ref, lb_ref = t_banded._sweep_steps(bp, _clone(state),
+                                                use_kernel=False)
+            state, lb = t_bk.sweep_banded(bp, _clone(state), width)
+            torch.cuda.synchronize()
+            for g, r in zip((state[0], state[1], *state[2]),
+                            (ref[0], ref[1], *ref[2])):
+                assert torch.equal(g, r)
+            np.testing.assert_allclose(float(lb), float(lb_ref), rtol=1e-5)
+
+
 # ------------------------------------------- the raster wavefront's kernels
 def _wavefront_problem(cuda, K, H, W, kernel):
     prob = [torch.as_tensor(a, device=cuda)
@@ -405,6 +442,28 @@ def test_wavefront_sweep_kernel_on_card(cuda, K, H, W, kernel):
         assert t_wfk.sweep_wavefront.launches == before + 1
         assert torch.equal(M[0], ref[0]) and torch.equal(M[1], ref[1])
         np.testing.assert_allclose(float(lb), float(lb_ref), rtol=1e-5)
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("width", [0, 32, 16, 8])
+@pytest.mark.parametrize("K,H,W", [(3, 40, 9), (15, 40, 47), (79, 70, 33),
+                                   (128, 7, 9), (202, 9, 40)])
+def test_wavefront_sweep_widths_on_card(cuda, K, H, W, width, negative):
+    """Each phase-B job width, forced (32, 16, 8) and chosen a step (0),
+    from one state as the plain sweep: messages bit for bit, the bound to
+    float32 rounding; both smoothness kernels, two sweeps."""
+    for kernel in (1, 2):
+        prob, sk, M = _wavefront_problem(cuda, K, H, W, kernel)
+        if negative:
+            sk = t_wf._Skewed(*_negate_third(prob, K + H), kernel, 1.0)
+        for _ in range(2):
+            ref, lb_ref = t_wf._sweep_steps(sk, tuple(m.clone() for m in M),
+                                            use_kernel=False)
+            M, lb = t_wfk.sweep_wavefront(sk, tuple(m.clone() for m in M),
+                                          width)
+            torch.cuda.synchronize()
+            assert torch.equal(M[0], ref[0]) and torch.equal(M[1], ref[1])
+            np.testing.assert_allclose(float(lb), float(lb_ref), rtol=1e-5)
 
 
 @pytest.mark.parametrize("sweep", ["fused", "steps"])

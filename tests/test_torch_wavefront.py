@@ -20,7 +20,6 @@ from stereo_tpu.solvers import banded as j_banded
 from stereo_tpu.solvers import wavefront as j_wf
 from stereo_tpu_torch import convert, testing
 from stereo_tpu_torch.ops import wavefront_kernel as t_wfk
-from stereo_tpu_torch.ops.minplus import TILE
 from stereo_tpu_torch.solvers import banded as t_banded
 from stereo_tpu_torch.solvers import wavefront as t_wf
 
@@ -350,14 +349,14 @@ def test_kernel_limits_are_stated_and_checked():
 WAIT_SIZES = [(9, 5), (5, 9), (1, 7), (7, 1), (40, 47), (70, 33)]
 
 
-def _job_lanes(H, W, t, backward, seg, tile):
-    """Target lanes of job (seg, tile) of step t's phase B, as
-    csrc/wavefront_kernel.cu::sends_step enumerates them: heads (seg 0, 1)
-    at the step's live lanes, tails (seg 2, 3) at those of the step they
+def _job_lanes(H, W, t, backward, seg, tile, J):
+    """Target lanes of job (seg, tile), J lanes wide, of step t's phase B,
+    as csrc/wavefront_kernel.cu::sends_width enumerates them: heads (seg 0,
+    1) at the step's live lanes, tails (seg 2, 3) at those of the step they
     write into."""
     step = t if seg < 2 else (t - 1 if backward else t + 1)
     lo, hi = t_wfk.live_lanes(H, W, step)
-    lanes = lo + tile * TILE + np.arange(TILE)
+    lanes = lo + tile * J + np.arange(J)
     return lanes[lanes < hi]
 
 
@@ -412,18 +411,18 @@ def _readers(psk, t, backward, group, d):
             for k in range(H) if hit[k].any()}
 
 
+@pytest.mark.parametrize("J", [32, 16, 8])
 @pytest.mark.parametrize("H,W", WAIT_SIZES)
-def test_wait_rule_covers_every_dependency(H, W, monkeypatch):
+def test_wait_rule_covers_every_dependency(H, W, J, monkeypatch):
     """ops/wavefront_kernel.py::wait_lanes (the rule by which the fused
     sweep's phase-B jobs wait for phase A) against the plain version's own
-    index maps: for every step, pass, job and written lane, the gD lane the
-    job reads and every lane of phase A that reads the message it overwrites
-    lie in the job's wait set."""
+    index maps: for every step, pass, job (J lanes wide) and written lane,
+    the gD lane the job reads and every lane of phase A that reads the
+    message it overwrites lie in the job's wait set."""
     sk = t_wf._Skewed(*T(testing.trws_problem(0, 2, H, W)), 1, 1.0)
     # the probe problem: one label per lane, theta = 0
     psk = t_wf._Skewed(*T(testing.trws_problem(0, max(H, 2), H, W)), 1, 1.0)
     psk.theta.zero_()
-    tiles = lambda n: -(-n // TILE)
     checked = 0
     for backward in (False, True):
         heads, tails = (1, 0) if backward else (0, 1)
@@ -432,19 +431,19 @@ def test_wait_rule_covers_every_dependency(H, W, monkeypatch):
             c = t + 1
             cn = c - 1 if backward else c + 1
             lo, hi = t_wfk.live_lanes(H, W, t)
-            tlo, thi = t_wfk.live_lanes(H, W, t - 1 if backward else t + 1)
             groups = (MA, MB)
+            jobs = t_wfk.step_jobs(H, W, t, backward, J)
             for seg in range(4):
                 group, d = (heads, seg) if seg < 2 else (tails, seg - 2)
                 col = c if seg < 2 else cn
                 written = set(np.flatnonzero(
                     groups[group][col, d, 0].numpy() != 0).tolist())
                 readers = _readers(psk, t, backward, group, d)
-                n = tiles(hi - lo) if seg < 2 else tiles(thi - tlo)
-                for tile in range(n):
-                    wlo, whi = t_wfk.wait_lanes(H, W, t, backward, seg, tile)
+                for tile in range(jobs[seg]):
+                    wlo, whi = t_wfk.wait_lanes(H, W, t, backward, seg, tile,
+                                                J)
                     assert lo <= wlo and whi <= hi
-                    lanes = _job_lanes(H, W, t, backward, seg, tile)
+                    lanes = _job_lanes(H, W, t, backward, seg, tile, J)
                     for x in lanes:
                         if x not in written:
                             continue  # not written: a dead edge

@@ -5,23 +5,31 @@ default), csrc/wavefront_kernel.cu (kernel 6), csrc/phase_kernel.cu
 (kernel 3).
 
     python3 tools/time_banded_kernel.py [--kernel banded|wavefront|phase|send|pair]
-    python3 tools/time_banded_kernel.py --kernel phase|send|pair --against DIR ...
+    python3 tools/time_banded_kernel.py --kernel KERNEL --against DIR ...
     python3 tools/time_banded_kernel.py --kernel phase --message-dtype bfloat16
 
-Needs one NVIDIA GPU and nvcc.  It builds only the kernel's source, then
-runs chip_smoke.py's own functions (no second copy of them).  For a fused
-sweep: ``banded_sweep_vs_plain`` / ``wavefront_sweep_vs_plain`` (every
-``BANDED_CASES`` / ``WAVEFRONT_CASES`` entry, both smoothness kernels, from
-zero and from the warm state, bit for bit), the repeatability check
+Needs one NVIDIA GPU and nvcc.  It builds only the kernel's source, prints
+the instruction mix of the largest basic blocks of each entry function
+(``cuobjdump -sass``, where the toolkit has it; the K^2 loops are the
+largest: the fused sweeps' hoisted and plain-term walks at each job width
+among their twelve), then runs chip_smoke.py's own functions (no second
+copy of them).  For a fused sweep: ``banded_sweep_vs_plain`` /
+``wavefront_sweep_vs_plain`` (every ``BANDED_CASES`` / ``WAVEFRONT_CASES``
+entry, both smoothness kernels, from zero and from the warm state, at every
+phase-B job width, bit for bit), the repeatability check
 ``banded_sweep_repeatable`` / ``wavefront_sweep_repeatable`` (two sweeps
 from one state, same bits), and ``time_banded_sweep`` /
-``time_wavefront_sweep`` at teddy's shape, K = 79, and at K = 15 on
-370 x 413, the two shapes that split a step's fixed cost from its
-arithmetic (median of 12 sweeps each); the wavefront kernel also at teddy's
-K = 202 (median of 4).  For the phase, send and pair kernels: the
-instruction mix of the largest basic blocks of each entry function
-(``cuobjdump -sass``, where the toolkit has it; the K^2 loops are the
-largest), every comparison of chip_smoke.py for the kernel, bit for bit
+``time_wavefront_sweep`` at teddy's shape, K = 79 and 202, and at K = 15
+on 370 x 413, the shapes that split a step's fixed cost from its
+arithmetic (median of 12 sweeps, 4 at K = 202), each with its issue floor
+(``sweep_floor_ms``: 8 sends x K^2 terms a pixel at ``INSTR_PER_TERM``
+over ``PEAK_INSTR``); ``--against`` builds the fused sweep of other trees
+(``csrc/<kind>_kernel.cu`` with its ``minplus.cuh``, bound through the
+tree's own wrapper where an ``ops/`` lies beside it: the parent's takes no
+job width), checks each against the plain version (``SWEEP_CHECKS``) and
+times them in turns with this tree's at each job width (chosen a step, and
+32, 16 and 8 forced) at ``SWEEP_SHAPES``.  For the phase, send and pair
+kernels: every comparison of chip_smoke.py for the kernel, bit for bit
 (``phase_vs_plain``, ``send_vs_plain`` with the gathered calls,
 ``pair_vs_plain``), and the kernel's times: ``time_phase`` at teddy's
 K = 79 (compact 188 x 450, full grid 375 x 450) and at K = 15 (compact
@@ -72,21 +80,24 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke as cs  # noqa: E402  (exits at once without a GPU)
-from stereo_tpu_torch.ops import _build, minplus, phase_kernel  # noqa: E402
+from stereo_tpu_torch.ops import (  # noqa: E402
+    _build, banded_kernel, minplus, phase_kernel, wavefront_kernel)
 
 # instructions that end a basic block; those of them with a target start one
 ENDS_BLOCK = ("BRA", "BRX", "JMP", "JMX", "CALL", "RET", "EXIT", "BSSY",
               "BSYNC", "BREAK", "WARPSYNC")
 FLOAT_OPS = ("FADD", "FMUL", "FMNMX", "FFMA")
-# the phase kernels' issue floor: one float32 instruction per lane and cycle
-# (132 SMs x 128 lanes at the 1.98 GHz boost clock), four issued a term once
-# the truncation is hoisted out of the K^2 loop (sub, mul with |.|, add, min)
+# the issue floor of the phase kernels and the fused sweeps: one float32
+# instruction per lane and cycle (132 SMs x 128 lanes at the 1.98 GHz boost
+# clock), four issued a term once the truncation is hoisted out of the K^2
+# loop (sub, mul with |.|, add, min)
 PEAK_INSTR = 132 * 128 * 1.98e9
 INSTR_PER_TERM = 4
 INSTR_PER_PAIR = 6  # the pair kernel: + add, min for its second output
@@ -100,11 +111,13 @@ def opcode(text: str) -> str:
 
 
 def short_name(mangled: str) -> str:
-    """'_ZN..20phase_compact_kernelILi1EEEv..' -> 'phase_compact_kernel<1>'."""
-    m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)I((?:Li\d+E)+)E", mangled)
+    """'_ZN..20phase_compact_kernelILi1EEEv..' -> 'phase_compact_kernel<1>'
+    (a bool argument as 0 or 1: 'banded_sweep_kernel<1,1>')."""
+    m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)I((?:L[ib]\d+E)+)E", mangled)
     if not m:
         return mangled
-    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def sass_mix(lib: str, top: int = 4) -> dict | None:
@@ -419,13 +432,141 @@ def pair_in_turns(others: list[str], smi: str):
                median_ms=statistics.median(ms), ms=ms)
 
 
+def sweep_floor_ms(K: int, H: int, W: int) -> float:
+    """The issue floor of a fused sweep (kernels 5 and 6): 8 sends x K^2
+    terms per pixel at INSTR_PER_TERM issued instructions."""
+    return 8 * H * W * K * K * INSTR_PER_TERM / PEAK_INSTR * 1e3
+
+
+def tree_sweep(csrc_dir: str, kind: str):
+    """The fused sweep wrapper module of another tree (``kind`` banded or
+    wavefront), with its own library (csrc_dir/<kind>_kernel.cu and its
+    minplus.cuh) bound: the ops/<kind>_kernel.py beside csrc_dir where there
+    is one (the tree's own C interface), else this tree's, loaded anew."""
+    name = f"{kind}_kernel"
+    path = os.path.join(os.path.dirname(os.path.abspath(csrc_dir)), "ops",
+                        name + ".py")
+    if not os.path.exists(path):
+        path = os.path.join(os.path.dirname(_build.__file__), name + ".py")
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_{abs(hash(csrc_dir))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._lib = mod.bind(ctypes.CDLL(build(name, csrc_dir)))
+    return mod
+
+
+# the shapes of the in-turn timing: teddy at K = 79 and 202 and baby2's
+# 370 x 413 at K = 15 (synthetic data, 128 x 128 blocks for the banded
+# sweep), with the sweeps a round at each
+SWEEP_SHAPES = ((15, 370, 413, 5), (79, 375, 450, 5), (202, 375, 450, 2))
+# the small cases that check another tree against the plain version
+SWEEP_CHECKS = {"banded": ((15, 40, 47, 8, 16), (79, 48, 40, 8, 8),
+                           (202, 10, 11, 5, 4)),
+                "wavefront": ((15, 40, 47), (79, 70, 33), (202, 9, 40))}
+
+
+def sweep_setup(kind: str, K: int, H: int, W: int, prob):
+    """(problem, state) of a fused sweep of ``kind`` on the card."""
+    if kind == "banded":
+        bp = cs.banded._BandedProblem(
+            *prob, cs.banded.BandedSpec(H, W, min(cs.BAND, H),
+                                        min(cs.BAND, W)), 1, 8.0)
+        return bp, cs.banded.messages_to_state(
+            torch.zeros((4, K, H, W), device=cs.DEV), bp)
+    sk = cs.wavefront._Skewed(*prob, 1, 8.0)
+    return sk, cs.wavefront.messages_to_groups(
+        torch.zeros((4, K, H, W), device=cs.DEV), W)
+
+
+def sweep_check(kind: str, mod, name: str):
+    """One tree's fused sweep against the plain version on the small
+    SWEEP_CHECKS cases, both smoothness kernels, zero and warm state."""
+    fn = getattr(mod, f"sweep_{kind}")
+    for case in SWEEP_CHECKS[kind]:
+        K, H, W = case[:3]
+        for kernel in (1, 2):
+            prob = [torch.as_tensor(a, device=cs.DEV) for a in
+                    cs.testing.trws_problem(K + kernel, K, H, W, np.float32)]
+            if kind == "banded":
+                bp = cs.banded._BandedProblem(
+                    *prob, cs.banded.BandedSpec(H, W, *case[3:]), kernel, 1.1)
+                state = cs.banded.messages_to_state(
+                    torch.zeros((4, K, H, W), device=cs.DEV), bp)
+                plain = lambda st: cs.banded._sweep_steps(
+                    bp, cs.clone_state(st), use_kernel=False)
+                flat = lambda st: [st[0], st[1], *st[2]]
+                copy = cs.clone_state
+            else:
+                bp = cs.wavefront._Skewed(*prob, kernel, 1.1)
+                state = cs.wavefront.messages_to_groups(
+                    torch.zeros((4, K, H, W), device=cs.DEV), W)
+                plain = lambda st: cs.wavefront._sweep_steps(
+                    bp, tuple(m.clone() for m in st), use_kernel=False)
+                flat = list
+                copy = lambda st: tuple(m.clone() for m in st)
+            for _ in range(2):
+                ref, lb_ref = plain(state)
+                state, lb = fn(bp, copy(state))
+                torch.cuda.synchronize()
+                cs.check(all(torch.equal(a, b) for a, b in
+                             zip(flat(state), flat(ref)))
+                         and abs(float(lb) - float(lb_ref))
+                         <= 1e-5 * abs(float(lb_ref)),
+                         f"{name}: {kind} sweep != plain version ({case}, "
+                         f"kernel {kernel})")
+    cs.say("checked", tree=name, kernel=kind)
+
+
+def sweep_in_turns(kind: str, others: list[str], smi: str):
+    """This tree's fused sweep at each job width (chosen a step, and 32, 16
+    and 8 forced) and those of ``others`` (csrc/ directories: the parent,
+    variants), each checked against the plain version, then timed in turns
+    at SWEEP_SHAPES: ROUNDS rounds, the order reversed every other round, a
+    run of sweeps back to back between two CUDA events each."""
+    this = banded_kernel if kind == "banded" else wavefront_kernel
+    trees = {"this": this}
+    for d in others:
+        trees[os.path.abspath(d)] = tree_sweep(d, kind)
+    for name, mod in trees.items():
+        if name != "this":
+            sweep_check(kind, mod, name)
+    runs = [("this", w) for w in (0, 32, 16, 8)] + [(d, None) for d in
+                                                    trees if d != "this"]
+    times, grids = collections.defaultdict(list), {}
+    for K, H, W, n in SWEEP_SHAPES:
+        prob = [torch.as_tensor(a, device=cs.DEV)
+                for a in cs.testing.synthetic_problem(K, H, W)]
+        problem, state = sweep_setup(kind, K, H, W, prob)
+        del prob
+        box = [state]
+        for r in range(ROUNDS):
+            for tree, width in (runs if r % 2 == 0 else runs[::-1]):
+                fn = getattr(trees[tree], f"sweep_{kind}")
+                args = () if width is None else (width,)
+
+                def sweep():
+                    box[0], _ = fn(problem, box[0], *args)
+
+                times[(K, tree, width)].append(batch_ms(sweep, n, 1))
+                grids[(K, tree, width)] = getattr(fn, "grid", None)
+        del problem, state, box
+        torch.cuda.empty_cache()
+    for (K, tree, width), ms in sorted(times.items(),
+                                       key=lambda kv: str(kv[0])):
+        H, W = next((h, w) for k, h, w, _ in SWEEP_SHAPES if k == K)
+        cs.say("in_turns", kernel=f"sweep_{kind}", K=K, size=[H, W],
+               tree=tree, width=width, grid=grids[(K, tree, width)],
+               card=smi, median_ms=statistics.median(ms), ms=ms,
+               issue_floor_ms=sweep_floor_ms(K, H, W))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", default="banded",
                     choices=("banded", "wavefront", "phase", "send", "pair"))
     ap.add_argument("--against", nargs="*", default=[],
-                    help="csrc/ directories of other trees (phase, send "
-                         "and pair)")
+                    help="csrc/ directories of other trees")
     ap.add_argument("--message-dtype", default="float32",
                     choices=("float32", "bfloat16"),
                     help="phase: the message storage of this tree's "
@@ -439,8 +580,9 @@ def main():
     log = _build.build_log.get(source, {})
     cs.say("build", source=source, seconds=time.perf_counter() - t0,
            ptxas=cs.ptxas_by_function(log.get("ptxas", "")))
-    if kind in ("phase", "send", "pair"):
-        cs.say("sass", inner_blocks=sass_mix(_build._target(source)[1]))
+    cs.say("sass", inner_blocks=sass_mix(
+        _build._target(source)[1],
+        top=4 if kind in ("phase", "send", "pair") else 12))
     if kind == "send":
         err = {"minplus_send": 0.0}
         cs.say("send_vs_plain", cases=cs.send_vs_plain(err),
@@ -487,18 +629,19 @@ def main():
         cases = cs.banded_sweep_vs_plain(err)
         cs.say("banded_vs_plain", cases=cases, max_abs_err=err[name])
         cs.banded_sweep_repeatable()
-        timed = [("", 79, 375, 450, 12), ("_k15", 15, 370, 413, 12)]
         time_sweep = cs.time_banded_sweep
     else:
         cases = cs.wavefront_sweep_vs_plain(err)
         cs.say("wavefront_vs_plain", cases=cases, max_abs_err=err[name])
         cs.wavefront_sweep_repeatable()
-        timed = [("", 79, 375, 450, 12), ("_k15", 15, 370, 413, 12),
-                 ("_k202", cs.K_WIDE, 375, 450, 4)]
         time_sweep = cs.time_wavefront_sweep
-    for suffix, K, H, W, reps in timed:
-        cs.say(name + suffix, card=smi,
+    for K, H, W, reps in ((79, 375, 450, 12), (15, 370, 413, 12),
+                          (cs.K_WIDE, 375, 450, 4)):
+        cs.say(f"{name}_k{K}", card=smi,
+               issue_floor_ms=sweep_floor_ms(K, H, W),
                **time_sweep(K, H, W, reps, plain=False))
+    if args.against:
+        sweep_in_turns(kind, args.against, smi)
     print(smi, flush=True)
 
 
