@@ -79,6 +79,19 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      one launch of kernel 5 a sweep), lb <= E; then the first 2 banded
      sweeps, and 8 sweeps each on the checkerboard (kernel 1) and wavefront
      (kernel 6) schedules, through the kernels and their plain versions;
+ 13a. (run at the end of 13., on its K = 15 problem from a restart) the
+     schedule race of tools/measure_race_torch.py and
+     tools/measure_wavefront_torch.py at small depth: run_device on the
+     checkerboard (kernel 1), banded (kernel 5), wavefront (kernel 6) and
+     scanline (kernel 4) schedules, two chunks each, and once more with the
+     first chunk's energy as the target (it must stop there); the
+     hierarchy race (two coarsenings solved through kernel 1 at 185 x 206
+     and 92 x 103, upsampled, then two checkerboard chunks);
+     wavefront_warm_start with levels=3 through kernel 6 at the coarse
+     shapes; both warm starts again through the plain versions, messages
+     bit for bit; lb <= E at every curve point and no bound falls between
+     chunks (rtol 1e-6); run_host a few iterations in raster and in banded
+     order (``race_path``);
  14. drives the main path a fourth time under the scanline schedule
      (examples/run_ncc_torch.py --schedule scanline): the same model and
      proposals, 4 sweeps with a decode every 2, every row phase's sends in
@@ -181,18 +194,18 @@ try:
     from stereo_tpu_torch.proposals import segpln as segpln_mod
     from stereo_tpu_torch.render import OcclRenderOptions, render_occl
     from stereo_tpu_torch.render.edgemodes import render_edgemodes
-    from stereo_tpu_torch.models import base as base_model
     from stereo_tpu_torch import entry, energy as energy_mod
     from stereo_tpu_torch.parallel import batch as batch_mod
     from stereo_tpu_torch.parallel import fusion_dist, mesh as mesh_mod
     from stereo_tpu_torch.solvers import (banded, banded_dist, binary,
-                                          qpbo_host, scanline, trws,
-                                          trws_host, wavefront)
+                                          hierarchy, qpbo_host, scanline,
+                                          trws, trws_host, wavefront)
     from stereo_tpu_torch.utils import io
     from stereo_tpu_torch.utils.checkpoint import Checkpointer
     from stereo_tpu_torch.utils.metrics import EnergyTrace
     from examples.run_render_torch import middle_view_P
     from examples import run_batch_torch
+    from tools import measure_race_torch as race
 except ModuleNotFoundError as exc:
     raise SystemExit(f"chip_smoke.py: {exc}; run it from the root of a "
                      "checkout of the repository, beside stereo_tpu_torch/")
@@ -307,6 +320,14 @@ GLOBAL_PAIR, GLOBAL_SIZE = "teddy", (375, 450)
 SIM_PAIR, SIM_SIZE, SIM_K = "baby2", (370, 413), 15
 SIM_SWEEPS, SIM_CHECK_EVERY, SIM_MAX_RELGAP = 64, 16, 1e-5
 SIM_PLAIN_SWEEPS, SIM_OTHER_SWEEPS = 2, 8
+# the schedule race on that problem: sweeps a chunk of each schedule (two
+# chunks each), the banded schedule's decodes a chunk, the coarse sweeps of
+# the hierarchy race (a check every RACE_CHECK_EVERY) and of the wavefront
+# warm start, the host's iterations in each order; curves hold lb <= E and
+# never-falling bounds to RACE_RTOL
+RACE_CHUNK = dict(checkerboard=16, banded=16, wavefront=4, scanline=1)
+RACE_DECODE_EVERY, RACE_COARSE_SWEEPS, RACE_CHECK_EVERY = 8, 32, 16
+RACE_WF_COARSE_SWEEPS, RACE_HOST_ITERS, RACE_RTOL = 4, 3, 1e-6
 # the scanline schedule on the main path's problem (teddy, K = 79): 4 sweeps
 # with a decode every 2, through kernel 4 (4 launches a row: 4 H a sweep);
 # then 2 sweeps from the same restart through the plain version
@@ -377,12 +398,7 @@ def on_card(inp: dict, names) -> list:
 
 
 # ------------------------------------------------------------ 1. build
-def nvidia_smi() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+nvidia_smi = race.nvidia_smi
 
 
 def ptxas_by_function(log: str) -> dict:
@@ -1262,11 +1278,9 @@ def serial_trws_sweeps(dm, props) -> dict:
     """trws_host.solve on the model's K-label simultaneous-fusion problem
     (the proposals and the incumbent), raster order, HOST_TRWS_SWEEPS
     sweeps: lb <= E and the bound never falls."""
-    stack = torch.stack(list(props) + [dm.assignment], 0)
     t0 = time.perf_counter()
-    unary = torch.stack([dm.unary_map(p) for p in stack], 0)
-    D0, Q = base_model._positions(stack, dm.normalize)
-    edges = trws_host.grid_to_edges(unary, D0, Q, dm.smooth_weights)
+    unary, D0, Q, alphas = race.build_problem(dm, props)
+    edges = trws_host.grid_to_edges(unary, D0, Q, alphas)
     t_edges = time.perf_counter() - t0
     H, W = dm.sz
     t0 = time.perf_counter()
@@ -1283,7 +1297,7 @@ def serial_trws_sweeps(dm, props) -> dict:
     check(all(b >= a - 1e-9 * abs(a) for a, b in zip(lbs, lbs[1:])),
           f"serial TRW-S bound fell: {lbs}")
     secs = tr["seconds"].tolist()
-    return dict(K=len(stack), nodes=H * W, edges=len(edges[1]),
+    return dict(K=len(unary), nodes=H * W, edges=len(edges[1]),
                 sweeps=iters, energies=es, lower_bounds=lbs,
                 cumulative_seconds=secs,
                 seconds_per_sweep=(secs[-1] - secs[0]) / (iters - 1),
@@ -1662,6 +1676,7 @@ def phase_simultaneous_path(smi: str) -> tuple:
                                              gate_energy=False)
     host = dict(global_moves=host_global_moves(dm, props),
                 trws_host=serial_trws_sweeps(dm, props))
+    race_counts = phase_race_path(dm, props, smi)
     del dm, props
     torch.cuda.empty_cache()
     launches = {
@@ -1670,18 +1685,109 @@ def phase_simultaneous_path(smi: str) -> tuple:
             runs["checkerboard"]["launches"]["phase_messages_compact"],
         "sweep_wavefront": runs["wavefront"]["launches"]["sweep_wavefront"],
         "minplus_send": runs["scanline"]["launches"]["minplus_send"]}
-    return launches, host, narrow_counts
+    return launches, host, narrow_counts, race_counts
+
+
+def check_curve(name: str, curve: list, chunks: int):
+    """A race curve: ``chunks`` points, each finite with lb <= E, and a
+    bound that never falls from one chunk to the next (RACE_RTOL)."""
+    check(len(curve) == chunks, f"race {name}: {len(curve)} chunks, "
+          f"expected {chunks}")
+    for p in curve:
+        check(np.isfinite([p["e"], p["lb"]]).all()
+              and p["lb"] <= p["e"] + RACE_RTOL * abs(p["e"]),
+              f"race {name}: lb > E at {p}")
+    for a, b in zip(curve, curve[1:]):
+        check(b["lb"] >= a["lb"] - RACE_RTOL * abs(a["lb"]),
+              f"race {name}: the bound fell from {a} to {b}")
+
+
+def phase_race_path(dm, props, smi) -> dict:
+    """tools/measure_race_torch.py and tools/measure_wavefront_torch.py at
+    small depth on the K = 15 problem of ``dm`` restarted (13a. in the
+    module's docstring).  Returns the launches of the kernels on the race's
+    path; the plain versions' runs are not counted."""
+    t_phase = time.perf_counter()
+    dm.restart()
+    unary, D0, Q, alphas = race.build_problem(dm, props)
+    kernel, tol = dm.smoothness_kernel, dm.tol
+    prob = (kernel, tol, unary, D0, Q, alphas)
+    H, W = unary.shape[1:]
+    curves = {}
+    reset_counts()
+    for sched, chunk in RACE_CHUNK.items():
+        kw = (dict(band=BAND, decode_every=RACE_DECODE_EVERY)
+              if sched == "banded" else {})
+        curves[sched], _ = race.run_device(*prob, sched, chunk, 2 * chunk,
+                                           None, **kw)
+        check_curve(sched, curves[sched], 2)
+    # the same first chunk again, with its energy as the target: the race
+    # stops there, not at its cap of four chunks
+    chunk, first = RACE_CHUNK["checkerboard"], curves["checkerboard"][0]
+    stopped, _ = race.run_device(*prob, "checkerboard", chunk, 4 * chunk,
+                                 first["e"] * (1 + RACE_RTOL))
+    check(len(stopped) == 1, f"race: {len(stopped)} chunks to a target "
+          "the first chunk reaches")
+    # the hierarchy race: its coarse levels through kernel 1 at the
+    # pyramid's shapes, then the checkerboard from the upsampled messages
+    warm_kw = dict(coarse_sweeps=RACE_COARSE_SWEEPS,
+                   check_every=RACE_CHECK_EVERY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = race.hierarchy_warm_start(*prob, **warm_kw)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    curves["hierarchy"], _ = race.run_device(*prob, "checkerboard", chunk,
+                                             2 * chunk, None, warm, t_warm)
+    check_curve("hierarchy", curves["hierarchy"], 2)
+    wf_kw = dict(kernel=kernel, tol=tol, levels=3,
+                 coarse_sweeps=RACE_WF_COARSE_SWEEPS)
+    t0 = time.perf_counter()
+    wf_warm = hierarchy.wavefront_warm_start(unary, D0, Q, alphas, **wf_kw)
+    torch.cuda.synchronize()
+    t_wf_warm = time.perf_counter() - t0
+    counts = read_counts()
+    for name in ("phase_messages_compact", "minplus_send", "sweep_banded",
+                 "sweep_wavefront"):
+        check(counts[name] > 0, f"race: no launch of {name}")
+    # both warm starts through the plain versions: kernels 1 and 6 equal
+    # them bit for bit, at the coarse shapes too
+    warm_plain = race.hierarchy_warm_start(*prob, use_kernel=False,
+                                           **warm_kw)
+    wf_plain = hierarchy.wavefront_warm_start(unary, D0, Q, alphas,
+                                              use_kernel=False, **wf_kw)
+    for name, a, b in (("hierarchy", warm, warm_plain),
+                       ("wavefront", wf_warm, wf_plain)):
+        check(a.shape == (4, *unary.shape) and torch.equal(a, b),
+              f"{name} warm start: kernels vs plain versions differ by "
+              f"{float((a - b).abs().max())}")
+    host = {}
+    for order in ("raster", "banded"):
+        h = race.run_host(*prob, RACE_HOST_ITERS, -math.inf, order=order,
+                          band=BAND)
+        es, lbs = h["trace_e"], h["trace_lb"]
+        check(h["iters"] == RACE_HOST_ITERS and np.isfinite(es + lbs).all()
+              and all(b <= a + 1e-9 * abs(a) for a, b in zip(es, lbs))
+              and all(b >= a - 1e-9 * abs(a) for a, b in zip(lbs, lbs[1:])),
+              f"host {order}: {h['iters']} iterations, E {es}, lb {lbs}")
+        host[order] = dict(energies=es, lower_bounds=lbs,
+                           seconds=h["seconds"])
+    say("race_path", card=smi, K=len(unary), size=[H, W],
+        chunks=RACE_CHUNK, band=BAND, decode_every=RACE_DECODE_EVERY,
+        curves=curves, stopped_at=stopped, hierarchy_warm_seconds=t_warm,
+        hierarchy_coarse_sweeps=RACE_COARSE_SWEEPS,
+        wavefront_warm_seconds=t_wf_warm,
+        wavefront_coarse_sweeps=RACE_WF_COARSE_SWEEPS,
+        warm_starts_bit_for_bit=True, host=host, launches=counts,
+        seconds=time.perf_counter() - t_phase)
+    return counts
 
 
 def model_problem(dm, proposals):
     """The TRW-S problem a model's simultaneous fusion solves over
     ``proposals`` (the incumbent joins as the last label): the positional
     arguments of trws.solve, and its kernel and tol."""
-    stack = torch.stack([dm._tensor(p) for p in proposals]
-                        + [dm.assignment], 0)
-    unary = torch.stack([dm.unary_map(p) for p in stack], 0)
-    D0, Q = base_model._positions(stack, dm.normalize)
-    return ((unary, D0, Q, dm.smooth_weights),
+    return (race.build_problem(dm, proposals),
             dict(kernel=dm.smoothness_kernel, tol=dm.tol))
 
 
@@ -2786,7 +2892,8 @@ def main():
     banded_sweep_repeatable()
     wavefront_sweep_repeatable()
     phase_global_path()
-    baby2_counts, host_baby2, narrow_baby2 = phase_simultaneous_path(smi)
+    baby2_counts, host_baby2, narrow_baby2, race_counts = (
+        phase_simultaneous_path(smi))
     say("host_path", card=smi, teddy_ncc=host_ncc, **host_baby2)
     phase_second_order_path()
     phase_render_path()
@@ -2804,6 +2911,8 @@ def main():
     for r in rows:
         if r["name"] in baby2_counts:
             r["launches_baby2_k15"] = baby2_counts[r["name"]]
+            # the schedule race on the same problem (13a.)
+            r["launches_race"] = race_counts[r["name"]]
         if r["name"] == "minplus_send":
             r["launches_scanline"] = scanline_counts["minplus_send"]
         if r["name"] == "phase_messages_compact":

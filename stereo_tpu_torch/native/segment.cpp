@@ -16,8 +16,9 @@
 //   this routine unions 8-neighbors whose modes are within the range
 //   bandwidth, transitively fuses adjacent regions with close mean modes,
 //   and absorbs regions below min_region into their closest neighbor.
-//   build_ram keeps the reference's gap: the last row's and the last
-//   column's adjacencies are never recorded.
+//   build_ram keeps the JAX package's gap, copied for parity: the last
+//   row's and the last column's adjacencies are never recorded (the MATLAB
+//   reference's EDISON BuildRAM adds them in two extra passes).
 //
 // Exposed with a C ABI for ctypes; no MATLAB/mex machinery.
 

@@ -52,7 +52,13 @@ void dt_linear(int K, const double* H, const double* src, const int32_t* sord,
   const double cap = minH + alpha * tol;
 
   // build the lower envelope of V-cones anchored at (src[i], H[i]),
-  // scanning anchors in ascending position order
+  // scanning anchors in ascending position order; z holds the region
+  // boundaries, the last one always +inf.  The JAX package's copy kept the
+  // previous cone on a tie (hk + dist == hj, where the new cone is as low
+  // everywhere and lower right of qj) and when the crossing rounded onto
+  // qj, so the new cone never entered: messages too high and a lower bound
+  // above the optimum; after such a pop a later break also left z's last
+  // boundary finite, and the evaluation read past its end.
   v.clear();
   z.clear();
   v.push_back(sord[0]);
@@ -61,30 +67,29 @@ void dt_linear(int K, const double* H, const double* src, const int32_t* sord,
   for (int n = 1; n < K; n++) {
     int k = sord[n];
     double hk = H[k], qk = src[k];
-    while (true) {
+    while (!v.empty()) {
       int j = v.back();
       double hj = H[j], qj = src[j];  // qj <= qk
       double dist = alpha * (qk - qj);
-      if (hk + dist < hj) {
-        // new cone dominates the previous anchor entirely
-        v.pop_back();
-        z.pop_back();
-        if (v.empty()) {
-          v.push_back(k);
-          z.back() = -kInf;
-          z.push_back(kInf);
-          break;
-        }
-        continue;
-      }
-      if (hj + dist <= hk) break;  // new cone never surfaces
+      if (hj + dist <= hk) break;  // new cone never below the previous one
       // cones cross at s: hj + alpha(s - qj) = hk - alpha(s - qk)
       double s = ((hk - hj) + alpha * (qk + qj)) / (2.0 * alpha);
-      if (s >= qk || s <= qj) break;  // numerical guard (ref :444-449)
+      if (hk + dist <= hj || s <= qj) {
+        // new cone nowhere above the previous anchor's (ties included, and
+        // a crossing rounded onto qj): the previous anchor leaves
+        v.pop_back();
+        z.pop_back();
+        z.back() = kInf;
+        continue;
+      }
       v.push_back(k);
       z.back() = s;
       z.push_back(kInf);
       break;
+    }
+    if (v.empty()) {
+      v.push_back(k);
+      z.assign({-kInf, kInf});
     }
   }
 

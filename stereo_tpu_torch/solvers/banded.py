@@ -66,8 +66,9 @@ card); the fused kernel's lower bound is summed in another order and agrees
 to float32 rounding.
 
 ``_BandedProblem(stripe=...)`` builds one gy-stripe of a taller image for
-the distributed solver (solvers/banded_dist.py).  Not ported yet
-(ROADMAP.md): narrow message storage.
+the distributed solver (solvers/banded_dist.py).  The JAX package's
+banded solver has no narrow message storage (only its checkerboard solver
+takes ``message_dtype``), so the port's has none either.
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@ one host synchronisation per ``check_every`` sweeps.  On a CUDA device each
 phase runs one hand-written kernel (ops/phase_kernel.py).  ``use_kernel=False``
 runs the plain PyTorch phase instead: a comparison aid for the on-device smoke
 run and the tests, not a mode for users (on the CPU the wrappers take the
-plain version anyway).  Narrow (bf16) message storage is not ported yet.
+plain version anyway).  ``message_dtype`` narrows the message storage
+(bfloat16 or float16; ``solve`` and ``TRWSRun``), as in the JAX package.
 """
 
 from __future__ import annotations

@@ -5,6 +5,10 @@ solvers.trws_host, each through the port's own copy of the native sources
 against the port's device solvers in the same orderings; the native build;
 and fusion_backend="host" on DispMapNCC and on DispMapGlobalStereo (with
 ``improve``) against the JAX models' host backend from a shared state.
+On inputs with exact ties (positions and costs on a grid of quarters) the
+port's serial TRW-S is held against brute force and its device solvers,
+not the JAX package's: the JAX copy's lower envelope drops a cone at a
+tie, and its bound then exceeds the optimum.
 
 Tolerances: labels equal; energies and bounds of the QPBO and serial TRW-S
 calls within 1e-12 (relative; the same C++ arithmetic on the same inputs);
@@ -14,6 +18,7 @@ fusion backend: assignment equal, energy within 1e-10."""
 
 import ctypes
 import dataclasses
+import itertools
 import os
 
 import jax.numpy as jnp
@@ -35,6 +40,7 @@ from stereo_tpu_torch.solvers import qpbo_host as t_qpbo
 from stereo_tpu_torch.solvers import scanline as t_scan
 from stereo_tpu_torch.solvers import trws as t_trws
 from stereo_tpu_torch.solvers import trws_host as t_host
+from stereo_tpu_torch.solvers import wavefront as t_wavefront
 from test_model_global import make_pair
 
 torch.set_num_threads(1)
@@ -248,6 +254,59 @@ def test_trws_host_scanline_order_matches_port_scanline(kernel):
                                    max_relgap=0.0)
         assert lb == pytest.approx(float(res.lower_bound), rel=1e-9), it
         assert e == pytest.approx(float(res.energy), rel=1e-9), it
+
+
+def _quarters(rng, shape, high):
+    """Values on a grid of quarters: ties between cones come often."""
+    return rng.integers(0, high, shape) / 4.0
+
+
+def test_trws_host_exact_on_tied_edges():
+    """One edge between two nodes is a tree: TRW-S ends at the optimum, its
+    bound equal to its energy.  With exact ties between the source cones
+    (a cone as low as its left neighbour's everywhere) the JAX package's
+    lower envelope kept the higher cone; here both equal brute force, on
+    every instance (e.g. positions 0 and 1 -> 0.25 and 1, costs 1.75 and
+    0.5: the JAX copy's bound is 3.0 over the optimum 1.5)."""
+    rng = np.random.default_rng(1)
+    for _ in range(300):
+        K = int(rng.integers(2, 6))
+        qs, qd = _quarters(rng, K, 6), _quarters(rng, K, 6)
+        u = _quarters(rng, (K, 2), 8)
+        _, e, lb, _ = t_host.solve(
+            1, u, np.array([0], np.int32), np.array([1], np.int32),
+            qs[:, None], qd[:, None], np.array([1.0]), 10.0,
+            np.array([0, 1], np.int32), maxiter=3, max_relgap=-1.0)
+        opt = min(u[a, 0] + u[b, 1] + min(abs(qs[a] - qd[b]), 10.0)
+                  for a, b in itertools.product(range(K), range(K)))
+        assert e == pytest.approx(opt, abs=1e-12)
+        assert lb == pytest.approx(opt, abs=1e-12), (qs, qd, u)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_trws_host_raster_matches_wavefront_on_tied_grid(seed):
+    """On a grid with ties everywhere, the serial solver in raster order is
+    the port's raster wavefront sweep for sweep (the device solvers take
+    the min over every source, so no envelope can drop one)."""
+    K, H, W = 4, 6, 7
+    rng = np.random.default_rng(seed)
+    prob = (_quarters(rng, (K, H, W), 12), _quarters(rng, (K, H, W), 8),
+            _quarters(rng, (4, K, H, W), 8),
+            testing.border_weights(H, W) * rng.integers(1, 4, (4, H, W)) / 2)
+    edges = t_host.grid_to_edges(*prob)
+    msgs = None
+    for it in range(1, 21):
+        res = t_wavefront.solve_wavefront(
+            *[torch.as_tensor(a) for a in prob], kernel=1, tol=1.0,
+            maxiter=1, max_relgap=0.0, messages=msgs)
+        msgs = res.messages
+        if it % 5:
+            continue
+        _, e, lb, _ = t_host.solve(1, *edges, 1.0, t_host.raster_order(H, W),
+                                   maxiter=it, max_relgap=-1.0)
+        assert lb == pytest.approx(float(res.lower_bound), rel=1e-9), it
+        assert e == pytest.approx(float(res.energy), rel=1e-9), it
+        assert lb <= e + 1e-9
 
 
 # --------------------------------------------------------- native build

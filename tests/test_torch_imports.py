@@ -31,7 +31,9 @@ FILES = sorted(
        os.path.join(ROOT, "tools", "profile_segpln.py"),
        os.path.join(ROOT, "tools", "check_multicard.py"),
        os.path.join(ROOT, "tools", "check_determinism.py"),
-       os.path.join(ROOT, "tools", "measure_message_dtype.py")])
+       os.path.join(ROOT, "tools", "measure_message_dtype.py"),
+       os.path.join(ROOT, "tools", "measure_race_torch.py"),
+       os.path.join(ROOT, "tools", "measure_wavefront_torch.py")])
 
 
 def _imports(path):

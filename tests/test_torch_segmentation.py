@@ -3,8 +3,8 @@ conversion (float32, in ulps), the mean-shift filter (float64, per pixel,
 against the JAX filter and the serial EDISON transcription in
 tests/oracle_meanshift.py, on the crops of tests/test_segmentation_parity.py),
 and the port's own copy of the native merge and graph-based segmentation
-(labels equal to stereo_tpu.native's), including the reference's build_ram
-gap.  A missing compiler or a failed build of the native copy raises."""
+(labels equal to stereo_tpu.native's), including the JAX package's
+build_ram gap, copied for parity.  A missing compiler or a failed build of the native copy raises."""
 
 import ctypes
 
@@ -114,8 +114,10 @@ def test_native_copy_felzenszwalb_equals_jax_native(sigma, k, min_size):
 
 @pytest.mark.parametrize("min_region", [0, 5])
 def test_build_ram_gap_pinned(min_region):
-    """The reference's BuildRAM never records the last row's and the last
-    column's adjacencies (native/segment.cpp build_ram, ADVICE.md): a
+    """The JAX package's build_ram never records the last row's and the
+    last column's adjacencies, and the port copies that gap for parity
+    (native/segment.cpp build_ram; the MATLAB reference's EDISON BuildRAM
+    adds them in two extra passes, ADVICE.md): a
     one-pixel region in the bottom-right corner, close in range to its
     neighbours (so a full adjacency graph would fuse or prune it), stays a
     region of its own, in the port's copy as in the JAX package's library
