@@ -1,0 +1,137 @@
+"""A simultaneous fusion (EMMCVPR 2013) to the configuration's stopping
+rule: ``dm.simultaneous_fusion(proposals)`` from the start field, TRW-S over
+the proposals and the incumbent.
+
+Judged, besides check.COMMON, on the solve's lower bound, certified by the
+reference: the program's final messages of a solve drawn from the seed are
+handed to one sweep of the plain float64 TRW-S (reference/trws.py) on the
+K-label problem that the reference builds from its own cost volume and the
+program's label planes (the proposals in the job's order, then the start
+field), in the program's node order.  That sweep's bound is a dual value,
+a lower bound of every labelling's energy whatever the messages say.
+
+- ``bound``: |program's bound - certified bound| / E_reference: a bound
+  the sweeps inflated, or one summed wrong, reads far off;
+- ``gap``: (E_reference(program's labelling) - certified bound) /
+  E_reference: the configuration's stopping rule, with both ends taken by
+  the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from portbench.reference import model
+from portbench.reference import trws as ref_trws
+
+NUMBERS = ("bound", "gap")
+
+# the messages that the last chunk of the running solve returned
+_CAPTURE = {"messages": None}
+
+
+def _install():
+    """Keep the message state that each chunk of a simultaneous fusion
+    returns, by wrapping the model's chunk step (once a process)."""
+    from stereo_tpu_torch.models import base
+    step = base._simultaneous_fusion_step
+    if getattr(step, "portbench_capture", False):
+        return
+
+    def capture(*args, **kwargs):
+        res = step(*args, **kwargs)
+        _CAPTURE["messages"] = res[4]
+        return res
+    capture.portbench_capture = True
+    base._simultaneous_fusion_step = capture
+
+
+class Job:
+    def __init__(self, dm, mix):
+        _install()
+        self.dm, self.mix = dm, mix
+        self.set_seed(0)
+
+    def set_seed(self, seed: int):
+        """The solve whose messages are kept is drawn from ``seed`` (one
+        among the window's, each as likely)."""
+        self.rng = np.random.default_rng(seed)
+        self.seen, self.kept = 0, None
+
+    def warm_up(self, proposals):
+        keep = self.dm.maxiter
+        self.dm.maxiter = self.mix["warmup"]
+        try:
+            self.dm.simultaneous_fusion(proposals)
+        finally:
+            self.dm.maxiter = keep
+            _CAPTURE["messages"] = None
+
+    def run(self, proposals) -> dict:
+        e, lb, sweeps = self.dm.simultaneous_fusion(proposals)
+        messages, _CAPTURE["messages"] = _CAPTURE["messages"], None
+        out = dict(energy=e, bound=lb, sweeps=sweeps, messages=None)
+        self.seen += 1
+        if self.rng.random() < 1.0 / self.seen:
+            if self.kept is not None:
+                self.kept["messages"] = None
+            out["messages"], self.kept = messages, out
+        return out
+
+    def end_to_end(self, jobs, elapsed: float) -> dict:
+        return {"solve_s": elapsed / len(jobs)}
+
+    def view(self) -> dict:
+        return dict(schedule=self.dm.schedule, band=self.dm.band)
+
+
+def node_order(schedule: str, band: int, H: int, W: int, device):
+    """The node order of the banded schedule, the configuration's, with the
+    program's block side (its message state is the one a backward pass in
+    that order leaves)."""
+    if schedule != "banded":
+        raise ValueError(f"no reference order for the schedule {schedule!r}")
+    return ref_trws.banded_order(H, W, max(2, min(band, H)),
+                                 max(2, min(band, W)), device)
+
+
+def label_problem(ref, planes: torch.Tensor):
+    """(theta, D0, Q, alphas) of the K-label problem whose label k is the
+    plane field planes[k] [4, H, W], from the reference's volume."""
+    cfg = ref.cfg
+    planes = planes.to(ref.vol.dtype)
+    theta = model.unary(ref.vol, ref.disp, cfg["unary_weight"], planes)
+    D0 = model.own_disparity(planes)
+    Q, alphas = [], []
+    for d in range(4):
+        q, ok = model.neighbour_disparity(planes, d)
+        Q.append(torch.where(ok, q, torch.zeros_like(q)))
+        alphas.append(ok.to(planes.dtype))
+    return theta, D0, torch.stack(Q), torch.stack(alphas)
+
+
+def certified_bound(ref, program: dict, messages: torch.Tensor) -> float:
+    """The reference sweep's bound from the program's ``messages``."""
+    H, W = ref.wta.shape
+    labels = list(program["proposals"]) + [program["start"]]
+    planes = torch.stack([p.to(ref.vol.device) for p in labels])
+    theta, D0, Q, alphas = label_problem(ref, planes)
+    del planes
+    t = node_order(program["schedule"], program["band"], H, W,
+                   ref.vol.device)
+    return ref_trws.certified_bound(theta, D0, Q, alphas, ref.cfg["tol"], t,
+                                    messages.to(ref.vol.device))
+
+
+def judge(ref, program: dict, jobs: list, order) -> list[dict]:
+    rows = []
+    for job in jobs:
+        row = {}
+        if job.get("messages") is not None:
+            lb = certified_bound(ref, program, job["messages"])
+            e = ref.energy(job["planes"])
+            row["bound"] = abs(job["bound"] - lb) / e
+            row["gap"] = (e - lb) / e
+        rows.append(row)
+    return rows
