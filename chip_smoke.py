@@ -858,8 +858,7 @@ def phase_main_path():
         iterative_energy=e_iter, fusion_moves=n_prop, fusion_seconds=t_fuse,
         simultaneous_energy=e, lower_bound=lb, sweeps=iters,
         simultaneous_seconds=t_sim, lb_trace=lbs,
-        energy_trace=trace.energies, launches=counts,
-        timings=dm.timings.seconds)
+        energy_trace=trace.energies, launches=counts)
 
     # the same first sweeps through the plain version, on the card
     out = {}
@@ -1547,8 +1546,7 @@ def phase_global_path():
         segpln_seconds=t_segpln, fusion_seconds=t_fuse,
         fusion_moves=len(props), initial_energy=e_init,
         final_energy=energies[-1], energy_trace=energies,
-        weight_segments=weight_segments, segmentations=census,
-        timings=dm.timings.seconds)
+        weight_segments=weight_segments, segmentations=census)
     del dm, props
     torch.cuda.empty_cache()
 
@@ -1659,8 +1657,7 @@ def phase_simultaneous_path(smi: str) -> tuple:
         simultaneous_energy=e, lower_bound=lb, sweeps=iters,
         check_every=SIM_CHECK_EVERY, max_relgap=SIM_MAX_RELGAP,
         simultaneous_seconds=t_sim, ratio=e / e_iter, lb_trace=lbs,
-        energy_trace=trace.energies, launches=counts,
-        timings=dm.timings.seconds)
+        energy_trace=trace.energies, launches=counts)
 
     runs = {"banded": schedule_vs_plain(dm, props, "banded", SIM_PLAIN_SWEEPS,
                                         "sweep_banded", 1)}

@@ -4,12 +4,14 @@ Fig. 4b of "In Defense of 3D-Label Stereo").
 
     python3 examples/run_global_torch.py                 # on the GPU
     python3 examples/run_global_torch.py --device cpu --pair synth
+    python3 examples/run_global_torch.py --trace global_trace.json
 
 The first run on a GPU compiles the native segmentation into
 stereo_tpu_torch/build/ (a few seconds).
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -23,7 +25,7 @@ from stereo_tpu_torch import geometry  # noqa: E402
 from stereo_tpu_torch.config import CVPR08Options  # noqa: E402
 from stereo_tpu_torch.models.global_stereo import (  # noqa: E402
     DispMapGlobalStereo)
-from stereo_tpu_torch.utils import io, metrics  # noqa: E402
+from stereo_tpu_torch.utils import io, metrics, profiling  # noqa: E402
 
 
 def build_model(pair_name, dtype, seed=0, kernel=1, device="cuda"):
@@ -44,6 +46,10 @@ def main():
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="run the fusion moves under torch.profiler, "
+                         "write the chrome trace to PATH and print the "
+                         "seconds in each of the program's spans")
     args = ap.parse_args()
 
     dm = build_model(args.pair, args.dtype, args.seed, device=args.device)
@@ -52,10 +58,13 @@ def main():
     segplns = dm.segpln(seed=args.seed)
     print(f"{len(segplns)} SegPln proposals in {time.perf_counter()-t0:.2f}s")
 
+    trace = (profiling.device_trace(args.trace) if args.trace
+             else contextlib.nullcontext())
     t0 = time.perf_counter()
-    for i, P in enumerate(segplns):
-        e, lb = dm.binary_fusion(P)
-        print(f"  SegPln {i+1}/{len(segplns)}: E = {e:.6g}")
+    with trace as prof:
+        for i, P in enumerate(segplns):
+            e, lb = dm.binary_fusion(P)
+            print(f"  SegPln {i+1}/{len(segplns)}: E = {e:.6g}")
     dt = time.perf_counter() - t0
     print(f"final energy {dm.energy():.6g} "
           f"({len(segplns)} fusions in {dt:.2f}s, {len(segplns)/dt:.2f} "
@@ -70,7 +79,9 @@ def main():
     else:
         print("no GT disparities found (set STEREO_TPU_GT_DIR to enable "
               "bad-pixel %)")
-    print(dm.timings.summary())
+    if prof is not None:
+        for name, (s, n) in profiling.span_seconds(prof).items():
+            print(f"{name:>18}: {s:8.3f} s in {n} spans")
     return dm
 
 

@@ -7,12 +7,14 @@ fusion from a restart, and reports both energies.
 
     python3 examples/run_ncc_torch.py                 # on the GPU
     python3 examples/run_ncc_torch.py --device cpu --max-disp 8 --maxiter 16
+    python3 examples/run_ncc_torch.py --trace ncc_trace.json
 
 The first run on a GPU compiles the CUDA kernels into
 stereo_tpu_torch/build/ (a few seconds).
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -24,7 +26,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from stereo_tpu_torch.models.ncc import (  # noqa: E402
     DispMapNCC, grid_proposals)
-from stereo_tpu_torch.utils import io  # noqa: E402
+from stereo_tpu_torch.utils import io, profiling  # noqa: E402
 
 
 def main():
@@ -45,6 +47,10 @@ def main():
                     help="float64 on a GPU needs --skip-simultaneous: the "
                          "CUDA kernels of that phase are float32")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="run the fusion phases under torch.profiler, "
+                         "write the chrome trace to PATH and print the "
+                         "seconds in each of the program's spans")
     args = ap.parse_args()
     if (args.dtype != "float32" and args.device != "cpu"
             and not args.skip_simultaneous):
@@ -68,7 +74,18 @@ def main():
     proposals = grid_proposals(dm, args.grid_step, args.max_disp)
     print(f"{len(proposals)} proposals in {time.perf_counter()-t0:.2f}s")
 
-    # iterative binary fusion
+    trace = (profiling.device_trace(args.trace) if args.trace
+             else contextlib.nullcontext())
+    with trace as prof:
+        fuse(dm, proposals, args)
+    if prof is not None:
+        for name, (s, n) in profiling.span_seconds(prof).items():
+            print(f"{name:>18}: {s:8.3f} s in {n} spans")
+    return dm
+
+
+def fuse(dm, proposals, args):
+    """Iterative binary fusion, then simultaneous fusion from a restart."""
     t0 = time.perf_counter()
     dm.binary_fusion_sweep(proposals, chunk=len(proposals))
     t_fuse = time.perf_counter() - t0
@@ -85,8 +102,6 @@ def main():
         print(f"simultaneous fusion: E = {e:.6g} (lb {lb:.6g}, "
               f"{iters} TRW-S iters, {time.perf_counter()-t0:.2f}s)")
         print(f"energy ratio simultaneous/iterative: {e/single_energy:.4f}")
-    print(dm.timings.summary())
-    return dm
 
 
 if __name__ == "__main__":

@@ -7,11 +7,13 @@ same 14 SegPln proposals from a restart.
     python3 examples/run_simultaneous_torch.py            # on the GPU
     python3 examples/run_simultaneous_torch.py --device cpu --pair synth \\
         --maxiter 16
+    python3 examples/run_simultaneous_torch.py --trace simultaneous_trace.json
 
 On the GPU the simultaneous phase runs the CUDA sweep kernels (float32).
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -20,6 +22,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 from examples.run_global_torch import build_model  # noqa: E402
+from stereo_tpu_torch.utils import profiling  # noqa: E402
 
 
 def main():
@@ -35,6 +38,10 @@ def main():
                     help="block size for --schedule banded")
     ap.add_argument("--max-relgap", type=float, default=1e-5)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="run the simultaneous fusion under torch.profiler, "
+                         "write the chrome trace to PATH and print the "
+                         "seconds in each of the program's spans")
     args = ap.parse_args()
     if args.dtype != "float32" and args.device != "cpu":
         ap.error("--dtype float64 needs --device cpu: the CUDA kernels of "
@@ -60,13 +67,18 @@ def main():
     dm.restart()
     dm.maxiter = args.maxiter
     dm.max_relgap = args.max_relgap
+    trace = (profiling.device_trace(args.trace) if args.trace
+             else contextlib.nullcontext())
     t0 = time.perf_counter()
-    e_sim, lb, trws_iters = dm.simultaneous_fusion(segplns, verbose=True)
+    with trace as prof:
+        e_sim, lb, trws_iters = dm.simultaneous_fusion(segplns, verbose=True)
     dt = time.perf_counter() - t0
     print(f"simultaneous fusion: E = {e_sim:.6g} (lb {lb:.6g}, "
           f"{trws_iters} TRW-S iters, {dt:.2f}s)")
     print(f"simultaneous/iterative energy ratio: {e_sim/e_iter:.4f}")
-    print(dm.timings.summary())
+    if prof is not None:
+        for name, (s, n) in profiling.span_seconds(prof).items():
+            print(f"{name:>18}: {s:8.3f} s in {n} spans")
     return dm
 
 

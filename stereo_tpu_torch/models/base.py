@@ -27,7 +27,7 @@ from stereo_tpu_torch import energy, geometry
 from stereo_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from stereo_tpu_torch.solvers import (banded, binary, qpbo_host, scanline,
                                       trws, wavefront)
-from stereo_tpu_torch.utils.profiling import PhaseTimings
+from stereo_tpu_torch.utils.profiling import span
 
 _SCHEDULES = ("checkerboard", "scanline", "wavefront", "banded")
 
@@ -80,8 +80,6 @@ class DispMap:
             H, W, dtype=self.dtype, device=self.device)
         self._assignment = None
         self._stored_energy = float("inf")
-        # cumulative per-phase wall clock
-        self.timings = PhaseTimings()
         # False runs the plain PyTorch TRW-S phases / sweeps instead of the
         # CUDA kernels: a comparison aid for the smoke run and the tests only
         self.use_kernel = True
@@ -129,15 +127,18 @@ class DispMap:
             raise ValueError("Binary fusion: proposal is of wrong size")
         if self.fusion_backend == "host":
             return self._binary_fusion_host(proposal)
-        with self.timings.phase("binary_fusion"):
+        with span("fusion.proposal"):
             D0, Q = binary.fusion_problem(self._assignment, proposal,
                                           self.normalize)
-            res = binary.binary_fuse(
-                self.unary_map(self._assignment), self.unary_map(proposal),
-                D0, Q, self.smooth_weights, kernel=self.smoothness_kernel,
-                tol=self.tol, improve=4 if self.improve else 0)
+            U0 = self.unary_map(self._assignment)
+            U1 = self.unary_map(proposal)
+        res = binary.binary_fuse(
+            U0, U1, D0, Q, self.smooth_weights, kernel=self.smoothness_kernel,
+            tol=self.tol, improve=4 if self.improve else 0)
+        with span("fusion.merge"):
             fused = energy.fuse_labelling(self._assignment, proposal,
                                           res.take)
+        with span("fusion.finish"):
             e, lb = float(res.energy), float(res.lower_bound)
         self._assignment = fused
         self._stored_energy = e
@@ -169,25 +170,22 @@ class DispMap:
         unlabelled nodes remain and ``improve`` is set.  The state stays on
         the model's device; the QPBO inputs go to the host as float64 numpy
         and the take mask comes back."""
-        with self.timings.phase("binary_fusion"):
-            H, W = self.sz
-            cur = self._assignment
-            tables = energy.binary_fusion_pairwise_tables(
-                cur, proposal, self.smoothness_kernel, self.tol,
-                self.normalize).detach().to("cpu", torch.float64).numpy()
-            tails, heads, wts, sel = self._edge_lists()
-            E = [np.concatenate([wts[i] * tables[d, t, ys, xs]
-                                 for i, (d, ys, xs) in enumerate(sel)])
-                 for t in range(4)]
-            U0, U1 = (self.unary_map(p).detach().to("cpu", torch.float64)
-                      .numpy().ravel() for p in (cur, proposal))
-            labels, _, lb, n_unlab = qpbo_host.solve(
-                U0, U1, tails, heads, *E)
-            y = np.where(labels >= 0, labels, 0)
-            if n_unlab > 0 and self.improve:
-                y, _ = qpbo_host.improve(labels, U0, U1, tails, heads, *E)
-            take = torch.as_tensor((y == 1).reshape(H, W),
-                                   device=self.device)
+        H, W = self.sz
+        cur = self._assignment
+        tables = energy.binary_fusion_pairwise_tables(
+            cur, proposal, self.smoothness_kernel, self.tol,
+            self.normalize).detach().to("cpu", torch.float64).numpy()
+        tails, heads, wts, sel = self._edge_lists()
+        E = [np.concatenate([wts[i] * tables[d, t, ys, xs]
+                             for i, (d, ys, xs) in enumerate(sel)])
+             for t in range(4)]
+        U0, U1 = (self.unary_map(p).detach().to("cpu", torch.float64)
+                  .numpy().ravel() for p in (cur, proposal))
+        labels, _, lb, n_unlab = qpbo_host.solve(U0, U1, tails, heads, *E)
+        y = np.where(labels >= 0, labels, 0)
+        if n_unlab > 0 and self.improve:
+            y, _ = qpbo_host.improve(labels, U0, U1, tails, heads, *E)
+        take = torch.as_tensor((y == 1).reshape(H, W), device=self.device)
         self._assignment = energy.fuse_labelling(cur, proposal, take)
         self._update_energy()
         return self._stored_energy, float(lb)
@@ -201,15 +199,16 @@ class DispMap:
         unary_p = self.unary_partial()
         energies = []
         for c0 in range(0, len(proposals), chunk):
-            stack = torch.stack(
-                [self._tensor(p) for p in proposals[c0:c0 + chunk]], 0)
-            with self.timings.phase("binary_fusion_sweep"):
-                fused, es, _ = _fusion_sweep(
-                    self._assignment, stack, self.smooth_weights,
-                    self.smoothness_kernel, self.tol, self.normalize,
-                    unary_p, improve=4 if self.improve else 0)
+            with span("fusion.pack"):
+                stack = torch.stack(
+                    [self._tensor(p) for p in proposals[c0:c0 + chunk]], 0)
+            fused, es, _ = _fusion_sweep(
+                self._assignment, stack, self.smooth_weights,
+                self.smoothness_kernel, self.tol, self.normalize,
+                unary_p, improve=4 if self.improve else 0)
             self._assignment = fused
-            energies.extend(float(e) for e in es.cpu().numpy())
+            with span("fusion.finish"):
+                energies.extend(float(e) for e in es.cpu().numpy())
         self._stored_energy = energies[-1] if energies else self.energy()
         return energies
 
@@ -257,7 +256,8 @@ class DispMap:
             return len(energies)
 
         unary_p = self.unary_partial()
-        stack_all = torch.stack([self._tensor(p) for p in proposals], 0)
+        with span("fusion.pack"):
+            stack_all = torch.stack([self._tensor(p) for p in proposals], 0)
         chunk = min(chunk, max(8, n))
         pos = 0
         moves = 0
@@ -277,15 +277,16 @@ class DispMap:
             # pad to the chunk shape; padded entries are live=False identity
             # steps inside _fusion_sweep (take forced empty)
             batch += [batch[-1]] * (chunk - n_live)
-            sub = stack_all[torch.as_tensor(batch, device=self.device)]
-            live = torch.arange(chunk, device=self.device) < n_live
-            with self.timings.phase("binary_fusion_sweep"):
-                fused, es, _ = _fusion_sweep(
-                    self._assignment, sub, self.smooth_weights,
-                    self.smoothness_kernel, self.tol, self.normalize,
-                    unary_p, live=live, improve=4 if self.improve else 0)
+            with span("fusion.pack"):
+                sub = stack_all[torch.as_tensor(batch, device=self.device)]
+                live = torch.arange(chunk, device=self.device) < n_live
+            fused, es, _ = _fusion_sweep(
+                self._assignment, sub, self.smooth_weights,
+                self.smoothness_kernel, self.tol, self.normalize,
+                unary_p, live=live, improve=4 if self.improve else 0)
             self._assignment = fused
-            es = es.double().cpu().numpy()
+            with span("fusion.finish"):
+                es = es.double().cpu().numpy()
             for i in range(n_live):
                 pid = batch[i]
                 energies.append(float(es[i]))
@@ -311,10 +312,10 @@ class DispMap:
         joins as the last label.  Returns (energy, lower_bound, iterations).
         """
         _check_schedule(self.schedule)
-        all_props = [self._tensor(p) for p in proposals]
-        all_props.append(self._assignment)
-        stack = torch.stack(all_props, dim=0)  # [K, 4, H, W]
-        with self.timings.phase("data"):
+        with span("trws.pack"):
+            all_props = [self._tensor(p) for p in proposals]
+            all_props.append(self._assignment)
+            stack = torch.stack(all_props, dim=0)  # [K, 4, H, W]
             unary = torch.stack([self.unary_map(p) for p in all_props], dim=0)
 
         messages = None
@@ -333,12 +334,12 @@ class DispMap:
         }.get(self.schedule, self.solver_chunk)
         while total_iters < self.maxiter:
             chunk = min(chunk_size, self.maxiter - total_iters)
-            with self.timings.phase("simultaneous_fusion"):
-                labels, e, lb, iters, messages = _simultaneous_fusion_step(
-                    stack, unary, self.smooth_weights, self.smoothness_kernel,
-                    self.tol, self.normalize, chunk, self.max_relgap,
-                    self.check_every, messages, self.use_kernel,
-                    self.schedule, self.band)
+            labels, e, lb, iters, messages = _simultaneous_fusion_step(
+                stack, unary, self.smooth_weights, self.smoothness_kernel,
+                self.tol, self.normalize, chunk, self.max_relgap,
+                self.check_every, messages, self.use_kernel,
+                self.schedule, self.band)
+            with span("trws.finish"):
                 ef, lbf = float(e), float(lb)
             total_iters += int(iters)
             if ef < best_e:
@@ -357,8 +358,9 @@ class DispMap:
         if best_labels is None:
             raise FloatingPointError(
                 "simultaneous fusion: no decode had a finite energy")
-        idx = best_labels[None, None, :, :].long().expand(1, 4, *self.sz)
-        self._assignment = torch.gather(stack, 0, idx)[0]
+        with span("trws.finish"):
+            idx = best_labels[None, None, :, :].long().expand(1, 4, *self.sz)
+            self._assignment = torch.gather(stack, 0, idx)[0]
         self._stored_energy = best_e
         return self._stored_energy, float(lb), total_iters
 
@@ -411,31 +413,36 @@ def _fusion_sweep(current, prop_stack, weights, kernel, tol, normalize,
     Returns (fused, energies [P], lower_bounds [P])."""
 
     P = prop_stack.shape[0]
-    if live is None:
-        live = torch.ones((P,), dtype=torch.bool, device=current.device)
-    cur = current
-    U0 = unary_p(cur)
-    D0c, Qc = _positions(cur, normalize)
+    with span("fusion.pack"):
+        if live is None:
+            live = torch.ones((P,), dtype=torch.bool, device=current.device)
+        cur = current
+        U0 = unary_p(cur)
+        D0c, Qc = _positions(cur, normalize)
     es, lbs = [], []
     for i in range(P):
-        prop = prop_stack[i]
-        U1 = unary_p(prop)
-        D0p, Qp = _positions(prop, normalize)
-        D0 = torch.stack([D0c, D0p], dim=0)  # [2, H, W]
-        Q = torch.stack([Qc, Qp], dim=1)  # [4, 2, H, W]
+        with span("fusion.proposal"):
+            prop = prop_stack[i]
+            U1 = unary_p(prop)
+            D0p, Qp = _positions(prop, normalize)
+            D0 = torch.stack([D0c, D0p], dim=0)  # [2, H, W]
+            Q = torch.stack([Qc, Qp], dim=1)  # [4, 2, H, W]
         res = binary.binary_fuse(U0, U1, D0, Q, weights, kernel=kernel,
                                  tol=tol, improve=improve)
-        take = res.take & live[i]
-        cur = energy.fuse_labelling(cur, prop, take)
-        U0 = torch.where(take, U1, U0)
-        D0c = torch.where(take, D0p, D0c)
-        Qc = torch.stack(
-            [torch.where(geometry.shift_from_neighbor(take, d, fill=False),
-                         Qp[d], Qc[d])
-             for d in range(geometry.NUM_DIRS)], dim=0)
-        es.append(res.energy)
-        lbs.append(res.lower_bound)
-    return cur, torch.stack(es), torch.stack(lbs)
+        with span("fusion.merge"):
+            take = res.take & live[i]
+            cur = energy.fuse_labelling(cur, prop, take)
+            U0 = torch.where(take, U1, U0)
+            D0c = torch.where(take, D0p, D0c)
+            Qc = torch.stack(
+                [torch.where(
+                    geometry.shift_from_neighbor(take, d, fill=False),
+                    Qp[d], Qc[d])
+                 for d in range(geometry.NUM_DIRS)], dim=0)
+            es.append(res.energy)
+            lbs.append(res.lower_bound)
+    with span("fusion.finish"):
+        return cur, torch.stack(es), torch.stack(lbs)
 
 
 def _simultaneous_fusion_step(prop_stack, unary, weights, kernel, tol,
@@ -445,7 +452,8 @@ def _simultaneous_fusion_step(prop_stack, unary, weights, kernel, tol,
     """One chunk of TRW-S on the K-label fusion problem, under the
     checkerboard, the banded, the raster-wavefront or the scanline
     schedule."""
-    D0, Q = _positions(prop_stack, normalize)  # [K, H, W], [4, K, H, W]
+    with span("trws.pack"):
+        D0, Q = _positions(prop_stack, normalize)  # [K, H, W], [4, K, H, W]
     extra = {}
     if schedule == "banded":
         _solve = banded.solve_banded

@@ -84,6 +84,7 @@ from stereo_tpu_torch.geometry import take_plane
 from stereo_tpu_torch.ops import banded_kernel
 from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
 from stereo_tpu_torch.solvers import wavefront
+from stereo_tpu_torch.utils.profiling import span
 from stereo_tpu_torch.solvers.wavefront import (
     DN, GROUP_A, GROUP_B, LT, RT, UP, _head, _sends, _tail, skew, unskew)
 
@@ -750,25 +751,29 @@ def solve_banded(
     For repeated chunked solves of one problem use BandedRun, which packs
     the problem once instead of per call."""
     K, H, W = unary.shape
-    spec = BandedSpec(H, W, Bh, Bw)
-    bp = _BandedProblem(unary, positions, nbr_positions, alphas, spec,
-                        kernel, tol)
-    sweep_fn = _make_sweep_fn(bp, use_kernel, sweep)
-    if messages is None:
-        messages = torch.zeros((4, K, H, W), dtype=bp.dtype,
-                               device=bp.device)
-    state = messages_to_state(messages, bp)
-
-    zero = torch.zeros((), dtype=acc_dtype(bp.dtype), device=bp.device)
-    energy, lb = zero, zero
-    labels = torch.zeros((H, W), dtype=torch.int32, device=bp.device)
+    with span("trws.pack"):
+        spec = BandedSpec(H, W, Bh, Bw)
+        bp = _BandedProblem(unary, positions, nbr_positions, alphas, spec,
+                            kernel, tol)
+        sweep_fn = _make_sweep_fn(bp, use_kernel, sweep)
+        if messages is None:
+            messages = torch.zeros((4, K, H, W), dtype=bp.dtype,
+                                   device=bp.device)
+        state = messages_to_state(messages, bp)
+        zero = torch.zeros((), dtype=acc_dtype(bp.dtype), device=bp.device)
+        energy, lb = zero, zero
+        labels = torch.zeros((H, W), dtype=torch.int32, device=bp.device)
     it = 0
     while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
         for _ in range(check_every):
-            state, lb = sweep_fn(state)
-        labels, energy = _decode_state(bp, state)
+            with span("trws.sweep"):
+                state, lb = sweep_fn(state)
+        with span("trws.decode"):
+            labels, energy = _decode_state(bp, state)
         it += check_every
-    return TRWSResult(labels, energy, lb, it, state_to_messages(state, bp))
+    with span("trws.finish"):
+        messages = state_to_messages(state, bp)
+    return TRWSResult(labels, energy, lb, it, messages)
 
 
 class BandedRun:

@@ -32,6 +32,7 @@ from stereo_tpu_torch.energy import (default_weights, normalized,
                                      truncated_kernel)
 from stereo_tpu_torch.geometry import NUM_DIRS, OPP
 from stereo_tpu_torch.solvers import trws
+from stereo_tpu_torch.utils.profiling import span
 
 
 class FusionResult(NamedTuple):
@@ -478,45 +479,49 @@ def binary_fuse(
     H, W = unary0.shape
     dtype, dev = unary0.dtype, unary0.device
     theta0, theta1 = unary0, unary1
-    V = _tables(D0, Q, alphas, kernel, tol)
-    cb = trws.checkerboard(H, W, device=dev)
-    gamma = trws.node_gamma(H, W, dtype, device=dev)
-    valid = default_weights(H, W, dtype, device=dev)
-    black = cb == 0
-    white = cb == 1
-
-    M = torch.zeros((NUM_DIRS, H, W), dtype=dtype, device=dev)
-    acc_t = acc_dtype(dtype)
-    zero = torch.zeros((), dtype=acc_t, device=dev)
-    energy, lb = zero, zero
-    z = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    with span("fusion.k2_pack"):
+        V = _tables(D0, Q, alphas, kernel, tol)
+        cb = trws.checkerboard(H, W, device=dev)
+        gamma = trws.node_gamma(H, W, dtype, device=dev)
+        valid = default_weights(H, W, dtype, device=dev)
+        black = cb == 0
+        white = cb == 1
+        M = torch.zeros((NUM_DIRS, H, W), dtype=dtype, device=dev)
+        acc_t = acc_dtype(dtype)
+        zero = torch.zeros((), dtype=acc_t, device=dev)
+        energy, lb = zero, zero
+        z = torch.zeros((H, W), dtype=torch.bool, device=dev)
     it = 0
-    while it < maxiter and (it == 0 or trws._gap_open(energy, lb, max_relgap)):
-        for _ in range(check_every):
-            M, _ = _k2_phase(theta0, theta1, M, V, gamma, valid, black,
-                             accumulate_lb=False)
-            M, lb_sweep = _k2_phase(theta0, theta1, M, V, gamma, valid, white,
-                                    accumulate_lb=True)
-        # blacks contribute their belief minima (as in trws.solve)
-        D0b, D1b = _beliefs(theta0, theta1, M)
-        lb = lb_sweep + trws._masked_sum(black, torch.minimum(D0b, D1b))
-        z = _k2_decode(theta0, theta1, M, V, cb)
-        energy = _k2_energy(z, theta0, theta1, V)
+    while it < maxiter and (it == 0 or trws._gap_open(
+            energy, lb, max_relgap, "fusion.k2_stop")):
+        with span("fusion.k2_sweeps"):
+            for _ in range(check_every):
+                M, _ = _k2_phase(theta0, theta1, M, V, gamma, valid, black,
+                                 accumulate_lb=False)
+                M, lb_sweep = _k2_phase(theta0, theta1, M, V, gamma, valid,
+                                        white, accumulate_lb=True)
+            # blacks contribute their belief minima (as in trws.solve)
+            D0b, D1b = _beliefs(theta0, theta1, M)
+            lb = lb_sweep + trws._masked_sum(black, torch.minimum(D0b, D1b))
+            z = _k2_decode(theta0, theta1, M, V, cb)
+            energy = _k2_energy(z, theta0, theta1, V)
         it += check_every
 
-    if improve:
-        z = icm_polish(z, theta0, theta1, V, cb, improve)
-        z = block_polish(z, theta0, theta1, V, rounds=1)
-    # per-component acceptance: flip exactly the improving components
-    take = accept_components(z, theta0, theta1, V, method=accept_method)
-    energy = _k2_energy(take, theta0, theta1, V)
-    # unconditional never-increase backstop (see docstring): revert to the
-    # incumbent whenever the accepted configuration is worse than keeping it
-    e_keep = _k2_energy(torch.zeros_like(take), theta0, theta1, V)
-    incumbent = e_keep if current_energy is None else torch.minimum(
-        e_keep, torch.as_tensor(current_energy, dtype=e_keep.dtype,
-                                device=dev))
-    worse = energy > incumbent
-    take = torch.where(worse, torch.zeros_like(take), take)
-    energy = torch.where(worse, e_keep, energy)
+    with span("fusion.accept"):
+        if improve:
+            z = icm_polish(z, theta0, theta1, V, cb, improve)
+            z = block_polish(z, theta0, theta1, V, rounds=1)
+        # per-component acceptance: flip exactly the improving components
+        take = accept_components(z, theta0, theta1, V, method=accept_method)
+        energy = _k2_energy(take, theta0, theta1, V)
+        # unconditional never-increase backstop (see docstring): revert to
+        # the incumbent whenever the accepted configuration is worse than
+        # keeping it
+        e_keep = _k2_energy(torch.zeros_like(take), theta0, theta1, V)
+        incumbent = e_keep if current_energy is None else torch.minimum(
+            e_keep, torch.as_tensor(current_energy, dtype=e_keep.dtype,
+                                    device=dev))
+        worse = energy > incumbent
+        take = torch.where(worse, torch.zeros_like(take), take)
+        energy = torch.where(worse, e_keep, energy)
     return FusionResult(take, energy, lb, it)

@@ -55,6 +55,7 @@ from stereo_tpu_torch.geometry import take_plane
 from stereo_tpu_torch.ops.minplus import (minplus_send_many,
                                           minplus_send_many_ref)
 from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
+from stereo_tpu_torch.utils.profiling import span
 
 # direction indices (geometry.DIRS order)
 LT, RT, UP, DN = 0, 1, 2, 3
@@ -339,23 +340,26 @@ def solve_scanline(
     """TRW-S with the scanline ordering, on the device the tensors live on;
     a drop-in alternative to trws.solve (same message layout [4, K, H, W],
     so messages warm-start across calls)."""
-    rows = _Rows(unary, positions, nbr_positions, alphas, kernel, tol,
-                 use_kernel)
-    K, H, W = rows.K, rows.H, rows.W
-    if messages is None:
-        messages = torch.zeros((4, K, H, W), dtype=rows.dtype,
-                               device=rows.device)
-    Mp = _pad_row(messages.to(rows.dtype))
-    M = [Mp[d].contiguous() for d in range(4)]
-
-    zero = torch.zeros((), dtype=rows.acc_t, device=rows.device)
-    energy, lb = zero, zero
-    labels = torch.zeros((H, W), dtype=torch.int32, device=rows.device)
+    with span("trws.pack"):
+        rows = _Rows(unary, positions, nbr_positions, alphas, kernel, tol,
+                     use_kernel)
+        K, H, W = rows.K, rows.H, rows.W
+        if messages is None:
+            messages = torch.zeros((4, K, H, W), dtype=rows.dtype,
+                                   device=rows.device)
+        Mp = _pad_row(messages.to(rows.dtype))
+        M = [Mp[d].contiguous() for d in range(4)]
+        zero = torch.zeros((), dtype=rows.acc_t, device=rows.device)
+        energy, lb = zero, zero
+        labels = torch.zeros((H, W), dtype=torch.int32, device=rows.device)
     it = 0
     while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
         for _ in range(check_every):
-            lb = rows.sweep(M)
-        labels, energy = rows.decode(M)
+            with span("trws.sweep"):
+                lb = rows.sweep(M)
+        with span("trws.decode"):
+            labels, energy = rows.decode(M)
         it += check_every
-    out = torch.stack(M, 0)[:, :, 1:-1, :]
+    with span("trws.finish"):
+        out = torch.stack(M, 0)[:, :, 1:-1, :]
     return TRWSResult(labels, energy, lb, it, out)

@@ -41,6 +41,7 @@ from stereo_tpu_torch.device import DEFAULT_DEVICE, acc_dtype, resolve_device
 from stereo_tpu_torch.energy import default_weights, truncated_kernel
 from stereo_tpu_torch.geometry import NUM_DIRS, OPP, take_plane
 from stereo_tpu_torch.ops import checker, phase_kernel
+from stereo_tpu_torch.utils.profiling import span
 
 
 class TRWSResult(NamedTuple):
@@ -341,11 +342,13 @@ class _Problem:
         return energy, lb, labels
 
 
-def _gap_open(energy, lb, max_relgap) -> bool:
-    """The stopping rule's test, in the problem's precision; one host sync."""
-    relgap = torch.where(energy != 0, (energy - lb) / energy,
-                         torch.zeros_like(energy))
-    return bool(relgap >= max_relgap)
+def _gap_open(energy, lb, max_relgap, name: str = "trws.stop") -> bool:
+    """The stopping rule's test, in the problem's precision; one host sync,
+    in a span of ``name`` (the host waits for the device there)."""
+    with span(name):
+        relgap = torch.where(energy != 0, (energy - lb) / energy,
+                             torch.zeros_like(energy))
+        return bool(relgap >= max_relgap)
 
 
 def solve(
@@ -375,20 +378,26 @@ def solve(
     counterpart of the JAX package's ``use_pallas``); leave it True
     otherwise.  ``message_dtype`` narrows the message storage (see the
     module's note); the result's messages are in it."""
-    prob = _Problem(unary, positions, nbr_positions, alphas, kernel, tol,
-                    mode, compact, use_kernel, message_dtype=message_dtype)
-    M = prob.init_state(messages)
-    zero = torch.zeros((), dtype=acc_dtype(prob.dtype), device=prob.device)
-    energy, lb = zero, zero
-    labels = torch.zeros((prob.H, prob.W), dtype=torch.int32,
-                         device=prob.device)
+    with span("trws.pack"):
+        prob = _Problem(unary, positions, nbr_positions, alphas, kernel, tol,
+                        mode, compact, use_kernel,
+                        message_dtype=message_dtype)
+        M = prob.init_state(messages)
+        zero = torch.zeros((), dtype=acc_dtype(prob.dtype),
+                           device=prob.device)
+        energy, lb = zero, zero
+        labels = torch.zeros((prob.H, prob.W), dtype=torch.int32,
+                             device=prob.device)
     it = 0
     while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
         for _ in range(check_every):
-            M, lb_sweep = prob.sweep(M)
-        energy, lb, labels = prob.check(M, lb_sweep)
+            with span("trws.sweep"):
+                M, lb_sweep = prob.sweep(M)
+        with span("trws.decode"):
+            energy, lb, labels = prob.check(M, lb_sweep)
         it += check_every
-    return TRWSResult(labels, energy, lb, it, prob.messages(M))
+    with span("trws.finish"):
+        return TRWSResult(labels, energy, lb, it, prob.messages(M))
 
 
 class TRWSRun:

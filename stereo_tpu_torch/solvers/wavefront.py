@@ -68,6 +68,7 @@ from stereo_tpu_torch.ops import wavefront_kernel
 from stereo_tpu_torch.ops.minplus import (minplus_send_many,
                                           minplus_send_many_ref)
 from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
+from stereo_tpu_torch.utils.profiling import span
 
 LT, RT, UP, DN = 0, 1, 2, 3
 # direction groups: A = (RT, DN), written by the forward pass; B = (LT, UP)
@@ -392,20 +393,24 @@ def solve_wavefront(
     rule (one host synchronisation per ``check_every`` sweeps) is
     trws.solve's."""
     K, H, W = unary.shape
-    sk = _Skewed(unary, positions, nbr_positions, alphas, kernel, tol)
-    sweep_fn = _make_sweep_fn(sk, use_kernel, sweep)
-    if messages is None:
-        messages = torch.zeros((4, K, H, W), dtype=sk.dtype,
-                               device=sk.device)
-    M = messages_to_groups(messages.to(sk.dtype), W)
-
-    zero = torch.zeros((), dtype=acc_dtype(sk.dtype), device=sk.device)
-    energy, lb = zero, zero
-    labels = torch.zeros((H, W), dtype=torch.int32, device=sk.device)
+    with span("trws.pack"):
+        sk = _Skewed(unary, positions, nbr_positions, alphas, kernel, tol)
+        sweep_fn = _make_sweep_fn(sk, use_kernel, sweep)
+        if messages is None:
+            messages = torch.zeros((4, K, H, W), dtype=sk.dtype,
+                                   device=sk.device)
+        M = messages_to_groups(messages.to(sk.dtype), W)
+        zero = torch.zeros((), dtype=acc_dtype(sk.dtype), device=sk.device)
+        energy, lb = zero, zero
+        labels = torch.zeros((H, W), dtype=torch.int32, device=sk.device)
     it = 0
     while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
         for _ in range(check_every):
-            M, lb = sweep_fn(M)
-        labels, energy = decode_raster(sk, M)
+            with span("trws.sweep"):
+                M, lb = sweep_fn(M)
+        with span("trws.decode"):
+            labels, energy = decode_raster(sk, M)
         it += check_every
-    return TRWSResult(labels, energy, lb, it, groups_to_messages(*M, W))
+    with span("trws.finish"):
+        messages = groups_to_messages(*M, W)
+    return TRWSResult(labels, energy, lb, it, messages)

@@ -26,7 +26,6 @@ FILES = sorted(
        os.path.join(ROOT, "examples", "run_render_torch.py"),
        os.path.join(ROOT, "examples", "run_full_sweep_torch.py"),
        os.path.join(ROOT, "examples", "run_batch_torch.py"),
-       os.path.join(ROOT, "tools", "profile_main_path.py"),
        os.path.join(ROOT, "tools", "time_banded_kernel.py"),
        os.path.join(ROOT, "tools", "profile_segpln.py"),
        os.path.join(ROOT, "tools", "check_multicard.py"),
