@@ -28,7 +28,8 @@ NVCC_FLAGS = (
 )
 # per-source extra flags; no FMA contraction, so a kernel rounds like its
 # plain PyTorch version (see the note in each source)
-EXTRA_FLAGS = {"phase_kernel": ("-fmad=false",),
+EXTRA_FLAGS = {"banded_decode": ("-fmad=false",),
+               "phase_kernel": ("-fmad=false",),
                "minplus_send": ("-fmad=false",),
                "minplus_pair": ("-fmad=false",),
                "banded_kernel": ("-fmad=false",),

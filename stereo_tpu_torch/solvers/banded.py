@@ -57,13 +57,18 @@ Two sweeps, selected by ``sweep=`` on ``solve_banded`` and ``BandedRun``:
       hand-written column send kernel, csrc/minplus_send.cu): the
       counterpart of the JAX package's scan path.
 
-``use_kernel=False`` turns every kernel of either sweep into its plain
-PyTorch version — a comparison aid for the tests and the on-device smoke run,
-as in solvers/trws.py.  With CUDA tensors a kernel path launches its kernel
-or raises; CPU tensors take the plain versions.  Both sweeps and both values
-of ``use_kernel`` give the same messages (bit for bit in float32 on the
-card); the fused kernel's lower bound is summed in another order and agrees
-to float32 rounding.
+The decode (``solve_banded``'s and ``BandedRun``'s ``decode="banded"``) is
+``ops.banded_decode.decode_banded``, on the card one launch of the
+hand-written kernel (csrc/banded_decode.cu), whichever the sweep; its plain
+version is ``_decode_state``, a Python loop over the T steps.
+
+``use_kernel=False`` turns every kernel of either sweep, and the decode's,
+into its plain PyTorch version — a comparison aid for the tests and the
+on-device smoke run, as in solvers/trws.py.  With CUDA tensors a kernel path
+launches its kernel or raises; CPU tensors take the plain versions.  Both
+sweeps and both values of ``use_kernel`` give the same messages and labels
+(bit for bit in float32 on the card); the fused kernels' lower bound and
+energy are summed in another order and agree to float32 rounding.
 
 ``_BandedProblem(stripe=...)`` builds one gy-stripe of a taller image for
 the distributed solver (solvers/banded_dist.py).  The JAX package's
@@ -81,7 +86,7 @@ import torch.nn.functional as F
 from stereo_tpu_torch.device import DEFAULT_DEVICE, acc_dtype, resolve_device
 from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.geometry import take_plane
-from stereo_tpu_torch.ops import banded_kernel
+from stereo_tpu_torch.ops import banded_decode, banded_kernel
 from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
 from stereo_tpu_torch.solvers import wavefront
 from stereo_tpu_torch.utils.profiling import span
@@ -695,8 +700,9 @@ def _decode_step(bp: _BandedProblem, state, t, sols, views, consts, down):
 def _decode_state(bp: _BandedProblem, state):
     """Greedy conditioned decode in banded order + exact energy.
 
-    Plain PyTorch, one Python step per column (_decode_step).  -> (labels
-    [H, W] int32, energy)."""
+    Plain PyTorch, one Python step per column (_decode_step): the plain
+    version of ops.banded_decode.decode_banded.  -> (labels [H, W] int32,
+    energy)."""
     spec = bp.spec
     sols = torch.zeros((spec.T + 2, spec.L), dtype=torch.int64,
                        device=bp.device)
@@ -722,6 +728,12 @@ def _make_sweep_fn(bp: _BandedProblem, use_kernel: bool, sweep: str):
     if sweep == "fused" and use_kernel:
         return lambda state: banded_kernel.sweep_banded(bp, state)
     return lambda state: _sweep_steps(bp, state, use_kernel)
+
+
+def _make_decode_fn(bp: _BandedProblem, use_kernel: bool):
+    if use_kernel:
+        return lambda state: banded_decode.decode_banded(bp, state)
+    return lambda state: _decode_state(bp, state)
 
 
 def solve_banded(
@@ -756,6 +768,7 @@ def solve_banded(
         bp = _BandedProblem(unary, positions, nbr_positions, alphas, spec,
                             kernel, tol)
         sweep_fn = _make_sweep_fn(bp, use_kernel, sweep)
+        decode_fn = _make_decode_fn(bp, use_kernel)
         if messages is None:
             messages = torch.zeros((4, K, H, W), dtype=bp.dtype,
                                    device=bp.device)
@@ -769,7 +782,7 @@ def solve_banded(
             with span("trws.sweep"):
                 state, lb = sweep_fn(state)
         with span("trws.decode"):
-            labels, energy = _decode_state(bp, state)
+            labels, energy = decode_fn(state)
         it += check_every
     with span("trws.finish"):
         messages = state_to_messages(state, bp)
@@ -803,6 +816,7 @@ class BandedRun:
         self.bp = _BandedProblem(unary, positions, nbr_positions, alphas,
                                  self.spec, kernel, tol)
         self._sweep_fn = _make_sweep_fn(self.bp, use_kernel, sweep)
+        self._decode_fn = _make_decode_fn(self.bp, use_kernel)
         if decode not in ("banded", "raster"):
             raise ValueError(f"unknown decode {decode!r}")
         self.decode = decode
@@ -819,7 +833,7 @@ class BandedRun:
 
     def _decode(self, state):
         if self.decode == "banded":
-            return _decode_state(self.bp, state)
+            return self._decode_fn(state)
         if self._sk is None:
             self._sk = wavefront._Skewed(*self._inputs, self.bp.kernel,
                                          self.bp.tol)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from stereo_tpu_torch import testing
+from stereo_tpu_torch.ops import banded_decode as t_bd
 from stereo_tpu_torch.ops import banded_kernel as t_bk
 from stereo_tpu_torch.ops import minplus as t_mp
 from stereo_tpu_torch.ops import phase_kernel as t_pk
@@ -338,6 +339,136 @@ def test_banded_wrappers_raise_on_card_for_bad_input(cuda):
         t_mp.minplus_send(hs, p, r.cpu(), alpha, 1.0, 1)
     with pytest.raises(ValueError, match="kernel"):
         t_mp.minplus_send(hs, p, r, alpha, 1.0, 3)
+
+
+# ------------------------------------------- the banded decode kernel
+def _warm_state(bp, state, sweeps):
+    for _ in range(sweeps):
+        state, _ = t_bk.sweep_banded(bp, state)
+    return state
+
+
+# the decode kernel sums the energy per lane in double, the plain version in
+# float32 (teddy K = 79 reads about 3e-7 apart)
+DECODE_RTOL = 1e-6
+
+
+def _decode_both(bp, state):
+    """The kernel's and the plain version's decode of one state: labels
+    bit for bit, the energy to float32 rounding; one launch."""
+    before = t_bd.decode_banded.launches
+    got, e = t_bd.decode_banded(bp, state)
+    torch.cuda.synchronize()
+    assert t_bd.decode_banded.launches == before + 1
+    ref, e_ref = t_banded._decode_state(bp, state)
+    assert got.dtype == torch.int32 and got.shape == ref.shape
+    assert torch.equal(got, ref)
+    np.testing.assert_allclose(float(e), float(e_ref), rtol=DECODE_RTOL)
+
+
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("K,H,W,Bh,Bw", [
+    (2, 9, 10, 4, 5), (15, 40, 47, 8, 16), (15, 37, 53, 16, 8),
+    (79, 21, 23, 5, 4), (202, 10, 11, 5, 4), (1000, 6, 7, 3, 4),
+    (2, 5, 7, 2, 2), (15, 6, 5, 2, 2), (79, 3, 4, 2, 2)])  # T = 3
+def test_banded_decode_kernel_on_card(cuda, K, H, W, Bh, Bw, kernel):
+    """The decode kernel against _decode_state from zero messages and after
+    one and three sweeps: ragged rows and columns, Bh != Bw both ways,
+    T = 3, K beyond every pass of the sweep's block and beyond its shared
+    memory (1000)."""
+    _, bp, state = _banded_problem(cuda, K, H, W, Bh, Bw, kernel)
+    _decode_both(bp, state)
+    state = _warm_state(bp, state, 1)
+    _decode_both(bp, state)
+    _decode_both(bp, _warm_state(bp, state, 2))
+
+
+@pytest.mark.parametrize("K", [2, 15, 79])
+def test_banded_decode_ties_go_to_the_lowest_label(cuda, K):
+    """Equal unaries in pairs, positions the same for every label, zero
+    messages: every pixel's conditioned terms tie and the lowest label
+    among the smallest unaries wins, as torch.argmin."""
+    H, W = 19, 23
+    theta, D0, Q, alphas = testing.trws_problem(K, K, H, W, np.float32)
+    theta = np.floor(theta / 2.5).astype(np.float32)  # 0 or 1: many ties
+    D0 = np.broadcast_to(D0[:1], D0.shape).copy()
+    Q = np.broadcast_to(Q[:, :1], Q.shape).copy()
+    prob = [torch.as_tensor(a, device=cuda) for a in (theta, D0, Q, alphas)]
+    bp = t_banded._BandedProblem(*prob, t_banded.BandedSpec(H, W, 4, 8), 1,
+                                 1.0)
+    state = t_banded.messages_to_state(
+        torch.zeros((4, K, H, W), device=cuda), bp)
+    _decode_both(bp, state)
+    got, _ = t_bd.decode_banded(bp, state)
+    first = torch.as_tensor(np.argmin(theta, axis=0), device=cuda)
+    assert torch.equal(got.long(), first)
+
+
+def test_solve_banded_decodes_once_a_check_on_card(cuda):
+    """A teddy-shaped solve of 192 sweeps with a check every 8: one decode
+    launch a check, 24 in all, beside 192 sweep launches; labels and
+    energy those of the plain decode."""
+    K, H, W = 79, 375, 450
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.synthetic_problem(K, H, W, seed=3)]
+    kw = dict(kernel=1, tol=8.0, Bh=128, Bw=128, maxiter=192,
+              max_relgap=0.0, check_every=8)
+    sweeps, decodes = t_bk.sweep_banded.launches, t_bd.decode_banded.launches
+    got = t_banded.solve_banded(*prob, **kw)
+    torch.cuda.synchronize()
+    assert got.iterations == 192
+    assert t_bk.sweep_banded.launches - sweeps == 192
+    assert t_bd.decode_banded.launches - decodes == 24
+    bp = t_banded._BandedProblem(*prob, t_banded.BandedSpec(H, W, 128, 128),
+                                 1, 8.0)
+    ref, e_ref = t_banded._decode_state(
+        bp, t_banded.messages_to_state(got.messages, bp))
+    assert torch.equal(got.labels, ref)
+    np.testing.assert_allclose(float(got.energy), float(e_ref),
+                               rtol=DECODE_RTOL)
+
+
+def test_banded_run_incumbent_kernel_equals_plain_on_card(cuda):
+    """A warm-started BandedRun.run with a decode every 2 sweeps: the same
+    incumbent labels and energy through the decode kernel as through the
+    plain decode, one launch a decode."""
+    K, H, W = 15, 37, 53
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.synthetic_problem(K, H, W, seed=2)]
+    kw = dict(kernel=1, tol=0.5, Bh=8, Bw=16)
+    warm = t_banded.solve_banded(*prob, **kw, maxiter=3, max_relgap=0.0,
+                                 use_kernel=False).messages
+    out = {}
+    for use_kernel in (True, False):
+        run = t_banded.BandedRun(*prob, **kw, use_kernel=use_kernel)
+        before = t_bd.decode_banded.launches
+        _, bestE, lb, bestL = run.run(run.init_state(warm), 6, 2)
+        torch.cuda.synchronize()
+        assert t_bd.decode_banded.launches - before == (3 if use_kernel
+                                                        else 0)
+        out[use_kernel] = (bestE, lb, bestL)
+    assert torch.equal(out[True][2], out[False][2])
+    np.testing.assert_allclose(float(out[True][0]), float(out[False][0]),
+                               rtol=DECODE_RTOL)
+    np.testing.assert_allclose(float(out[True][1]), float(out[False][1]),
+                               rtol=1e-5)
+
+
+def test_banded_decode_raises_on_card_for_bad_input(cuda):
+    _, bp, state = _banded_problem(cuda, 3, 8, 10, 4, 5, 1)
+    MA, MB, S = state
+    with pytest.raises(ValueError, match="expected"):
+        t_bd.decode_banded(bp, (MA.cpu(), MB, S))
+    with pytest.raises(ValueError, match="float32"):
+        t_bd.decode_banded(bp, (MA, MB.double(), S))
+    with pytest.raises(ValueError, match="shape"):
+        t_bd.decode_banded(bp, (MA, MB, (S[0][:-1].contiguous(), *S[1:])))
+    prob = [torch.as_tensor(a, device=cuda)
+            for a in testing.trws_problem(1, 3, 8, 10, np.float32)]
+    stripe = t_banded._BandedProblem(*prob, bp.spec, 1, 1.0,
+                                     stripe=(0, 16, False, True))
+    with pytest.raises(ValueError, match="stripe"):
+        t_bd.decode_banded(stripe, state)
 
 
 # ------------------------------------------- the min-plus pair kernel

@@ -354,9 +354,9 @@ def test_build_digest_covers_shared_headers(tmp_path):
     assert target("other")[1] == other2  # another source's bytes do not count
     (csrc / "second.cuh").write_text("")
     assert target("other")[1] != other2
-    # the package's own five sources are all built without FMA contraction
-    assert _build.sources() == ["banded_kernel", "minplus_pair",
-                                "minplus_send", "phase_kernel",
-                                "wavefront_kernel"]
+    # the package's own six sources are all built without FMA contraction
+    assert _build.sources() == ["banded_decode", "banded_kernel",
+                                "minplus_pair", "minplus_send",
+                                "phase_kernel", "wavefront_kernel"]
     for name in _build.sources():
         assert "-fmad=false" in _build._target(name)[2]
