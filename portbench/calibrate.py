@@ -6,12 +6,10 @@ own size, in one process.  The benchmark's own runs do not run this.
         --control-seeds 3 [--first-seed N] [--out FILE]
 
 Each seed runs one job of the cell's mix and is judged by check.judge; one
-JSON line a job, with the proposals' gaps to the reference's
-(check.proposal_gaps, largest first) and, for a solve, the certified
-bound.  The control is the reference put in the program's place
-in the next precision down: the reference's cost volume rounded to
-bfloat16 is handed to the program in place of its own float32 volume, and
-every later stage (start, proposals, solve, energy) runs on it.
+JSON line a job, with the model's raw readings (its ``readings``) and, for
+a solve, the certified bound.  The control is the reference put in the
+program's place in the next precision down, as the configuration's model
+states it (its ``control``; portbench/models/<model>.py).
 """
 
 from __future__ import annotations
@@ -56,14 +54,14 @@ def main() -> int:
     cfg = harness.config(cell["config"])
     mix = harness.traffic(cell["traffic"])
     ims = harness.images(cfg)
+    model = harness.model_kind(cfg["model"])
     from stereo_tpu_torch.ops import _build
     _build.build_all()
-    ref = check.Reference(cfg, ims, "cuda")
+    ref = model.Reference(cfg, ims, "cuda")
     sides = [("program", None, args.seeds),
-             ("control", ref.vol.to(torch.bfloat16).to(torch.float32),
-              args.control_seeds)]
-    for side, vol, n in sides:
-        prog = harness.Program(cfg, mix, ims, "cuda", ncc=vol)
+             ("control", model.control(ref), args.control_seeds)]
+    for side, control, n in sides:
+        prog = harness.Program(cfg, mix, ims, "cuda", control=control)
         prog.warm_up()
         for i in range(n):
             seed = args.first_seed + i
@@ -75,9 +73,8 @@ def main() -> int:
             dt = time.perf_counter() - t0
             t1 = time.perf_counter()
             view = prog.view()
-            numbers, _ = check.judge(ref, prog.kind, prog.order, view, [job])
-            gaps = sorted(check.proposal_gaps(ref, view, prog.order),
-                          reverse=True)
+            numbers, _ = check.judge(ref, model, prog.kind, prog.order, view,
+                                     [job])
             lb_ref = (prog.kind.certified_bound(ref, view, job["messages"])
                       if job.get("messages") is not None else None)
             say(cell=args.workload, side=side, seed=seed, job_s=dt,
@@ -85,7 +82,7 @@ def main() -> int:
                 sweeps=job.get("sweeps"), moves=job.get("moves"),
                 energy=job["energy"], bound=job.get("bound"),
                 certified_bound=lb_ref, energy_ref=ref.energy(job["planes"]),
-                proposal_gaps=gaps, numbers=numbers)
+                numbers=numbers, **model.readings(ref, view, prog.order))
         del prog
         torch.cuda.empty_cache()
     return 0

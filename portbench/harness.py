@@ -1,12 +1,14 @@
 """One run of one cell of the benchmark of stereo_tpu_torch.
 
 Everything that belongs to a cell is found by name: the cell in
-BENCHMARK.json, its configuration in portbench/configs/<config>.json, its
-traffic mix in portbench/traffic/<traffic>.json (parameters, and the name
-of its job kind), the kind in portbench/jobs/<job>.py, each per-layer
-metric's reader in portbench/metrics/<metric>.py and the limits of its
-comparison in portbench/limits/<cell>.json.  A new cell, configuration, mix,
-job kind or metric is a new file and a new entry; no file here names one.
+BENCHMARK.json, its configuration in portbench/configs/<config>.json, the
+configuration's stereo model in portbench/models/<model>.py (the program's
+construction, the plain reference and the model's own checks), its traffic
+mix in portbench/traffic/<traffic>.json (parameters, and the name of its job
+kind), the kind in portbench/jobs/<job>.py, each per-layer metric's reader
+in portbench/metrics/<metric>.py and the limits of its comparison in
+portbench/limits/<cell>.json.  A new cell, configuration, model, mix, job
+kind or metric is a new file and a new entry; no file here names one.
 
 A run: set-up (the program's kernels loaded from its build directory, the
 images decoded, the model, the proposals, one short job at the cell's own
@@ -16,7 +18,7 @@ the one under way finishes and counts).  With ``trace`` the first job of the
 window runs under torch.profiler and the result carries the per-layer
 metrics; without it, the end-to-end ones.  After the window the program's
 state is freed and the plain reference judges what every job produced
-(portbench/check.py and the kind's ``judge``).
+(portbench/check.py, the model's and the kind's ``judge``).
 """
 
 from __future__ import annotations
@@ -59,7 +61,11 @@ def find(entries: list, name: str, what: str) -> dict:
 
 
 def config(name: str) -> dict:
-    return _json(os.path.join(BENCH_DIR, "configs", name + ".json"))
+    """portbench/configs/<name>.json; one that names no model is refused."""
+    cfg = _json(os.path.join(BENCH_DIR, "configs", name + ".json"))
+    if "model" not in cfg:
+        raise SystemExit(f"the configuration {name!r} names no model")
+    return cfg
 
 
 def traffic(name: str) -> dict:
@@ -94,6 +100,11 @@ def job_kind(name: str):
     return _module("jobs", name)
 
 
+def model_kind(name: str):
+    """The stereo model portbench/models/<name>.py."""
+    return _module("models", name)
+
+
 def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
@@ -115,22 +126,12 @@ def order_of(seed: int, n: int) -> list[int]:
 
 
 class Program:
-    """The system under test: stereo_tpu_torch's NCC model, its proposals
-    in the seed's order, and the mix's job."""
+    """The system under test: the configuration's model in stereo_tpu_torch,
+    its proposals in the seed's order, and the mix's job."""
 
-    def __init__(self, cfg: dict, mix: dict, ims, device, ncc=None):
-        from stereo_tpu_torch.models.ncc import DispMapNCC, grid_proposals
-
-        dtype = np.dtype(cfg["dtype"])
-        disp = check.disparities(cfg)
-        self.dm = DispMapNCC(
-            [im.astype(dtype) for im in ims], disp, kernel=cfg["kernel"],
-            unary_weight=cfg["unary_weight"], tol=cfg["tol"],
-            maxiter=cfg["maxiter"], max_relgap=cfg["max_relgap"],
-            schedule=cfg["schedule"], device=device, ncc=ncc)
-        p = cfg["proposals"]
-        self.made = grid_proposals(self.dm, p["grid_step"], int(disp[-1]),
-                                   p["radius"])
+    def __init__(self, cfg: dict, mix: dict, ims, device, control=None):
+        self.model = model_kind(cfg["model"])
+        self.dm, self.made = self.model.build(cfg, ims, device, control)
         self.kind_name = mix["job"]
         self.kind = job_kind(self.kind_name)
         self.job = self.kind.Job(self.dm, mix)
@@ -144,8 +145,8 @@ class Program:
 
     def view(self) -> dict:
         """The pieces the reference judges besides the jobs' results."""
-        return dict(ncc=self.dm.ncc, start=self.start,
-                    proposals=self.proposals, **self.job.view())
+        return dict(start=self.start, proposals=self.proposals,
+                    **self.model.view(self.dm), **self.job.view())
 
     @property
     def K(self) -> int:
@@ -203,18 +204,18 @@ def window(prog: Program, seconds: float, device, trace: bool):
 
 def run_cell(cell: dict, cfg: dict, mix: dict, lims: dict, *, seed: int,
              seconds: float, trace: bool, device, per_layer=(),
-             end_to_end=(), t_start=None, ncc_override=None) -> dict:
+             end_to_end=(), t_start=None, control=None) -> dict:
     """One run; returns the result line's fields (see run.py), and "_ok":
     each number's verdict.  ``per_layer`` and ``end_to_end``: the cell's
-    metrics' entries in BENCHMARK.json.  ``ncc_override``: a volume handed
-    to the program in place of its own (the control)."""
+    metrics' entries in BENCHMARK.json.  ``control``: what the control run
+    hands the program (the model's ``control(ref)``)."""
     t_start = time.perf_counter() if t_start is None else t_start
     on_card = torch.device(device).type == "cuda"
     ims = images(cfg)
     if on_card:
         from stereo_tpu_torch.ops import _build
         _build.build_all()
-    prog = Program(cfg, mix, ims, device, ncc=ncc_override)
+    prog = Program(cfg, mix, ims, device, control=control)
     prog.set_seed(seed)
     prog.warm_up()
     if trace:  # the profiler's own start-up stays out of the window
@@ -227,7 +228,8 @@ def run_cell(cell: dict, cfg: dict, mix: dict, lims: dict, *, seed: int,
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     H, W = prog.dm.sz
-    kind_name, kind, order = prog.kind_name, prog.kind, prog.order
+    kind_name, kind, model, order = (prog.kind_name, prog.kind, prog.model,
+                                     prog.order)
     metrics = {}
     if trace:
         ctx = dict(kind=kind_name, trace=tr, traced=jobs[:1], jobs=jobs,
@@ -249,12 +251,13 @@ def run_cell(cell: dict, cfg: dict, mix: dict, lims: dict, *, seed: int,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    ref = check.Reference(cfg, ims, device)
-    numbers, per_job = check.judge(ref, kind, order,
+    ref = model.Reference(cfg, ims, device)
+    numbers, per_job = check.judge(ref, model, kind, order,
                                    moved(program, device),
                                    moved(jobs, device))
     correct, failed, checks = check.verdict(
-        numbers, per_job, lims, check.COMMON + tuple(kind.NUMBERS))
+        numbers, per_job, lims,
+        check.COMMON + tuple(model.NUMBERS) + tuple(kind.NUMBERS))
 
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": torch.cuda.get_device_name() if on_card else "cpu",

@@ -1,6 +1,7 @@
 """Job kinds: one file a kind, named as the ``job`` a traffic mix
 (portbench/traffic/<mix>.json) gives.  Each holds ``NUMBERS``, the numbers
-its jobs are judged on besides check.COMMON, and a ``Job`` class:
+its jobs are judged on besides check.COMMON and the model's (see
+portbench/models/__init__.py), and a ``Job`` class:
 
 - ``Job(dm, mix)``: the kind's hold on the program's model ``dm``;
 - ``warm_up(proposals)`` and ``run(proposals)``: a short job at the cell's

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.reference import fusion, model
+from portbench.reference import fusion
 
 NUMBERS = ("fusion_trace", "fusion_median")
 TRACE_MOVES = 3
@@ -48,10 +48,9 @@ class Job:
 
 def judge(ref, program: dict, jobs: list, order) -> list[dict]:
     fields = torch.stack([ref.field(k) for k in order])
-    _, ref_trace = fusion.fusion_sweep(ref.vol, ref.disp,
-                                       ref.cfg["unary_weight"],
-                                       ref.cfg["tol"], model.fronto(ref.wta),
-                                       fields)
+    _, ref_trace = fusion.fusion_sweep(ref.unary, ref.edge_weights(),
+                                       ref.tol, ref.start, fields,
+                                       ref.normalize)
     rows = []
     for job in jobs:
         tr = job["trace"]

@@ -5,9 +5,10 @@ the proposals and the incumbent.
 Judged, besides check.COMMON, on the solve's lower bound, certified by the
 reference: the program's final messages of a solve drawn from the seed are
 handed to one sweep of the plain float64 TRW-S (reference/trws.py) on the
-K-label problem that the reference builds from its own cost volume and the
-program's label planes (the proposals in the job's order, then the start
-field), in the program's node order.  That sweep's bound is a dual value,
+K-label problem that the model's reference builds (its ``label_problem``:
+its own unary and smoothness terms) on the program's label planes (the
+proposals in the job's order, then the start field), in the program's node
+order.  That sweep's bound is a dual value,
 a lower bound of every labelling's energy whatever the messages say.
 
 - ``bound``: |program's bound - certified bound| / E_reference: a bound
@@ -22,7 +23,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.reference import model
 from portbench.reference import trws as ref_trws
 
 NUMBERS = ("bound", "gap")
@@ -96,32 +96,17 @@ def node_order(schedule: str, band: int, H: int, W: int, device):
                                  max(2, min(band, W)), device)
 
 
-def label_problem(ref, planes: torch.Tensor):
-    """(theta, D0, Q, alphas) of the K-label problem whose label k is the
-    plane field planes[k] [4, H, W], from the reference's volume."""
-    cfg = ref.cfg
-    planes = planes.to(ref.vol.dtype)
-    theta = model.unary(ref.vol, ref.disp, cfg["unary_weight"], planes)
-    D0 = model.own_disparity(planes)
-    Q, alphas = [], []
-    for d in range(4):
-        q, ok = model.neighbour_disparity(planes, d)
-        Q.append(torch.where(ok, q, torch.zeros_like(q)))
-        alphas.append(ok.to(planes.dtype))
-    return theta, D0, torch.stack(Q), torch.stack(alphas)
-
-
 def certified_bound(ref, program: dict, messages: torch.Tensor) -> float:
     """The reference sweep's bound from the program's ``messages``."""
-    H, W = ref.wta.shape
+    H, W = ref.start.shape[-2:]
+    device = ref.start.device
     labels = list(program["proposals"]) + [program["start"]]
-    planes = torch.stack([p.to(ref.vol.device) for p in labels])
-    theta, D0, Q, alphas = label_problem(ref, planes)
+    planes = torch.stack([p.to(device) for p in labels])
+    theta, D0, Q, alphas, tol = ref.label_problem(planes)
     del planes
-    t = node_order(program["schedule"], program["band"], H, W,
-                   ref.vol.device)
-    return ref_trws.certified_bound(theta, D0, Q, alphas, ref.cfg["tol"], t,
-                                    messages.to(ref.vol.device))
+    t = node_order(program["schedule"], program["band"], H, W, device)
+    return ref_trws.certified_bound(theta, D0, Q, alphas, tol, t,
+                                    messages.to(device))
 
 
 def judge(ref, program: dict, jobs: list, order) -> list[dict]:

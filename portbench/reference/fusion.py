@@ -2,7 +2,8 @@
 program states it), float64 by default.
 
 A move between the current plane field (label 0) and a proposal (label 1)
-is a two-label MRF with the model's unary and truncated smoothness.  It is
+is a two-label MRF with the model's unary and its weighted truncated
+smoothness on normalised disparities (reference/planes.py).  It is
 solved by sequential tree-reweighted message passing on the checkerboard
 order (black pixels, then white), checked every 5 iterations, at most 50,
 stopping when (E - bound) / E < 1e-6; the labelling is decoded greedily
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 from scipy import ndimage
 
-from portbench.reference import model
+from portbench.reference import planes
 
 CHECK_EVERY = 5
 MAXITER = 50
@@ -32,7 +33,7 @@ OPP = (1, 0, 3, 2)
 def _from(x: torch.Tensor, d: int, fill=0.0) -> torch.Tensor:
     """x at each pixel's direction-d neighbour ([..., H, W]); ``fill`` where
     there is none."""
-    dy, dx = model.DIRS[d]
+    dy, dx = planes.DIRS[d]
     out = torch.full_like(x, fill)
     H, W = x.shape[-2:]
     ys = slice(max(0, -dy), H - max(0, dy))
@@ -54,22 +55,20 @@ def _split(md):
 class Move:
     """The two-label problem of one move: unaries t0, t1 [H, W] and the
     directed-edge tables V [4, 2, 2, H, W] (tail label, head label), zero on
-    edges that leave the image."""
+    edges that leave the image.  ``unary``: the model's unary of a plane
+    field; ``weights`` [4, H, W]: the edges' (0 where the tail lies outside
+    the image); ``normalize``: the model's (d_min, d_step) or None."""
 
-    def __init__(self, vol, disparities, weight, tol, cur, prop):
-        self.t0 = model.unary(vol, disparities, weight, cur)
-        self.t1 = model.unary(vol, disparities, weight, prop)
-        own = [model.own_disparity(p) for p in (cur, prop)]
-        V, valid = [], []
-        for d in range(4):
-            nb = [model.neighbour_disparity(p, d) for p in (cur, prop)]
-            ok = nb[0][1].to(cur.dtype)
-            valid.append(ok)
-            V.append(torch.stack([torch.stack(
-                [ok * (nb[i][0] - own[j]).abs().clamp(max=tol)
-                 for j in range(2)]) for i in range(2)]))
-        self.V = torch.stack(V)
-        self.valid = torch.stack(valid)
+    def __init__(self, unary, weights, tol, cur, prop, normalize=None):
+        self.t0 = unary(cur)
+        self.t1 = unary(prop)
+        (D0c, Qc, ok), (D0p, Qp, _) = (planes.positions(p, normalize)
+                                       for p in (cur, prop))
+        own, nb = (D0c, D0p), (Qc, Qp)
+        self.V = torch.stack([torch.stack([torch.stack(
+            [weights[d] * (nb[i][d] - own[j]).abs().clamp(max=tol)
+             for j in range(2)]) for i in range(2)]) for d in range(4)])
+        self.valid = ok.to(cur.dtype)
         H, W = self.t0.shape
         yy = torch.arange(H, device=cur.device)[:, None]
         xx = torch.arange(W, device=cur.device)[None, :]
@@ -182,13 +181,14 @@ class Move:
         return take, e
 
 
-def fusion_sweep(vol, disparities, weight, tol, start, props):
-    """Fuse ``props`` ([P, 4, H, W], in order) into ``start`` [4, H, W].
-    Returns (final field, energy after each move)."""
+def fusion_sweep(unary, weights, tol, start, props, normalize=None):
+    """Fuse ``props`` ([P, 4, H, W], in order) into ``start`` [4, H, W]
+    (``unary``, ``weights``, ``normalize``: as Move's).  Returns (final
+    field, energy after each move)."""
     cur = start
     trace = []
     for p in props:
-        take, e = Move(vol, disparities, weight, tol, cur, p).solve()
+        take, e = Move(unary, weights, tol, cur, p, normalize).solve()
         cur = torch.where(take[None], p, cur)
         trace.append(e)
     return cur, trace

@@ -14,10 +14,8 @@ program made.  The conventions are the reference MATLAB code's:
 - the NCC at a continuous disparity: the parabola through the three levels
   around the nearest one (ties to the larger), the raw level at the ends,
   -1e6 outside the range; the unary is w * (1 - NCC);
-- a plane (a, b, c, d) has disparity -(a x + b y + d) / c at the 1-based
-  pixel (x, y);
-- the smoothness sums, over every directed edge (tail n -> head p) of the
-  4-neighbourhood, min(|d_p(x_p) - d_n(x_p)|, tol) (kernel 1, weight 1);
+- the smoothness is planes.py's, weight 1 on every edge, disparities in
+  pixels (kernel 1);
 - a RANSAC proposal is the plane fitted, by 20 passes of reweighted least
   squares (weights sqrt(|residual|)), to the WTA points within ``radius`` of
   a grid node.
@@ -29,10 +27,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from portbench.reference import planes as geo
+
 LARGEVAL = 1e6
-# (dy, dx) of the neighbour each in-edge direction comes from: left, right,
-# up, down
-DIRS = ((0, -1), (0, 1), (-1, 0), (1, 0))
 
 
 def box_sum(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -122,66 +119,19 @@ def sample_ncc(vol: torch.Tensor, disparities, disp: torch.Tensor):
     return torch.where(good, val, torch.full_like(val, -LARGEVAL))
 
 
-def grid_xy(H: int, W: int, like: torch.Tensor):
-    """1-based pixel coordinates (xs, ys), [H, W] each."""
-    ys = torch.arange(1, H + 1, dtype=like.dtype, device=like.device)
-    xs = torch.arange(1, W + 1, dtype=like.dtype, device=like.device)
-    return xs[None, :].expand(H, W), ys[:, None].expand(H, W)
-
-
-def plane_disparity(planes: torch.Tensor, xs, ys) -> torch.Tensor:
-    """Disparity of planes [..., 4, H, W] at the points (xs, ys)."""
-    a, b, c, d = planes.unbind(-3)
-    return -(a * xs + b * ys + d) / c
-
-
-def own_disparity(planes: torch.Tensor) -> torch.Tensor:
-    H, W = planes.shape[-2:]
-    return plane_disparity(planes, *grid_xy(H, W, planes))
-
-
-def neighbour_disparity(planes: torch.Tensor, d: int):
-    """(disparity at each pixel of its direction-d neighbour's plane, mask of
-    the pixels that have that neighbour)."""
-    H, W = planes.shape[-2:]
-    dy, dx = DIRS[d]
-    shifted = torch.roll(planes, shifts=(-dy, -dx), dims=(-2, -1))
-    ok = torch.ones((H, W), dtype=torch.bool, device=planes.device)
-    if dy:
-        ok[H - 1 if dy > 0 else 0, :] = False
-    if dx:
-        ok[:, W - 1 if dx > 0 else 0] = False
-    safe = torch.where(ok, shifted, torch.ones_like(shifted))
-    return plane_disparity(safe, *grid_xy(H, W, planes)), ok
-
-
 def unary(vol, disparities, weight: float, planes):
     """w * (1 - NCC at each pixel's own disparity): [..., H, W]."""
-    return weight * (1.0 - sample_ncc(vol, disparities, own_disparity(planes)))
-
-
-def smoothness(planes: torch.Tensor, tol: float) -> torch.Tensor:
-    """Truncated-linear smoothness summed over the directed edges."""
-    own = own_disparity(planes)
-    total = torch.zeros((), dtype=planes.dtype, device=planes.device)
-    for d in range(len(DIRS)):
-        nb, ok = neighbour_disparity(planes, d)
-        cost = (own - nb).abs().clamp(max=tol)
-        total = total + torch.where(ok, cost, torch.zeros_like(cost)).sum()
-    return total
+    return weight * (1.0 - sample_ncc(vol, disparities,
+                                      geo.own_disparity(planes)))
 
 
 def energy(vol, disparities, weight: float, tol: float, planes) -> float:
-    """Total energy of a plane field [4, H, W]."""
+    """Total energy of a plane field [4, H, W]: the unary and the
+    smoothness of weight 1 on every edge."""
     planes = planes.to(vol.dtype)
     return float(unary(vol, disparities, weight, planes).sum()
-                 + smoothness(planes, tol))
-
-
-def fronto(disp: torch.Tensor) -> torch.Tensor:
-    """Per-pixel fronto-parallel planes (0, 0, 1, -d) of a disparity map."""
-    z = torch.zeros_like(disp)
-    return torch.stack([z, z, torch.ones_like(disp), -disp], dim=0)
+                 + geo.smoothness(planes, tol,
+                                  geo.edge_mask(*planes.shape[-2:], planes)))
 
 
 def fit_plane(xs: np.ndarray, ys: np.ndarray, ds: np.ndarray,

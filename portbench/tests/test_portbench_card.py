@@ -43,17 +43,13 @@ def test_one_job_on_the_card(cell):
 @pytest.mark.cuda
 def test_control_on_the_card():
     _need_card()
-    from test_portbench_faults import SMALL
+    from test_portbench_faults import small_config
 
-    from portbench import check
-    cfg = dict(harness.config("ncc_teddy"), **SMALL)
-    ref = check.Reference(cfg, harness.images(cfg), "cuda")
-    ctrl = ref.vol.to(torch.bfloat16).to(torch.float32)
-    spec = harness.load_spec()
-    entry = harness.find(spec["workloads"], "ncc_teddy.fusion", "workload")
-    cfg["proposals"] = dict(cfg["proposals"], grid_step=16)
+    entry, cfg = small_config("ncc_teddy.fusion")
+    model = harness.model_kind(cfg["model"])
+    ref = model.Reference(cfg, harness.images(cfg), "cuda")
     out = harness.run_cell(entry, cfg, harness.traffic(entry["traffic"]),
                            harness.limits("ncc_teddy.fusion"), seed=7,
                            seconds=0.0, trace=False, device="cuda",
-                           ncc_override=ctrl)
+                           control=model.control(ref))
     assert not out["correct"], out["checks"]

@@ -1,11 +1,12 @@
 """Whole runs of the harness at a small size on the CPU (the program's
 plain versions in place of its CUDA kernels), with the cell's own limits:
-a sound run is correct; the control (the reference's cost volume in
-bfloat16 handed to the program) and each fault planted in the program
-underneath the timed path are not: a step that returns its state unchanged,
-the energy taken over half the image and doubled, an answer altered where it
-is made, and (simultaneous fusion) a bound that the sweeps report too high.
-One chip: there is no exchange between chips to leave out."""
+a sound run is correct; the control (the configuration's model's: the
+reference's cost volume in bfloat16 handed to the program) and each fault
+planted in the program underneath the timed path are not: a step that
+returns its state unchanged, the energy taken over half the image and
+doubled, an answer altered where it is made, and (simultaneous fusion) a
+bound that the sweeps report too high.  One chip: there is no exchange
+between chips to leave out."""
 
 import pytest
 import torch
@@ -16,15 +17,19 @@ SMALL = dict(crop=[200, 248, 250, 314], disparities=[0, 16], maxiter=40,
              max_relgap=1e-6)
 
 
-def _run(cell, seed=2876543210, ncc=None):
-    spec = harness.load_spec()
-    entry = harness.find(spec["workloads"], cell, "workload")
-    cfg = harness.config(entry["config"])
-    cfg.update(SMALL)
+def small_config(cell):
+    """(the cell's entry, its configuration at the small size)."""
+    entry = harness.find(harness.load_spec()["workloads"], cell, "workload")
+    cfg = dict(harness.config(entry["config"]), **SMALL)
     cfg["proposals"] = dict(cfg["proposals"], grid_step=16)
+    return entry, cfg
+
+
+def _run(cell, seed=2876543210, control=None):
+    entry, cfg = small_config(cell)
     return harness.run_cell(entry, cfg, harness.traffic(entry["traffic"]),
                             harness.limits(cell), seed=seed, seconds=0.0,
-                            trace=False, device="cpu", ncc_override=ncc)
+                            trace=False, device="cpu", control=control)
 
 
 def _clone(x):
@@ -133,11 +138,10 @@ def test_sound_run_is_correct(cell):
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_control_is_not_correct(cell):
-    from portbench import check
-    ref = check.Reference(dict(harness.config("ncc_teddy"), **SMALL),
-                          harness.images(dict(harness.config("ncc_teddy"),
-                                              **SMALL)), "cpu")
-    out = _run(cell, ncc=ref.vol.to(torch.bfloat16).to(torch.float32))
+    _, cfg = small_config(cell)
+    model = harness.model_kind(cfg["model"])
+    ref = model.Reference(cfg, harness.images(cfg), "cpu")
+    out = _run(cell, control=model.control(ref))
     assert not out["correct"], out["checks"]
 
 

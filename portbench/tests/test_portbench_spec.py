@@ -95,8 +95,10 @@ def test_cells_resolve(cell):
     assert 1 <= len(cell["why"]) <= 200 and "\n" not in cell["why"]
     mix = harness.traffic(cell["traffic"])
     kind = harness.job_kind(mix["job"])
+    model = harness.model_kind(harness.config(cell["config"])["model"])
     lims = harness.limits(cell["name"])
-    assert set(check.COMMON + tuple(kind.NUMBERS)) <= set(lims)
+    assert set(check.COMMON + tuple(model.NUMBERS)
+               + tuple(kind.NUMBERS)) <= set(lims)
     # each cell reports setup_s, another end-to-end metric and a per-layer one
     e2e = [m["name"] for m in SPEC["end_to_end"]
            if cell["name"] in m.get("workloads", [cell["name"]])]
@@ -111,9 +113,13 @@ def test_gap_limit_is_the_stopping_rule():
             assert lims["gap"] == harness.config(cell["config"])["max_relgap"]
 
 
+def _files(sub):
+    return sorted(f[:-3] for f in os.listdir(os.path.join(
+        harness.BENCH_DIR, sub)) if f.endswith(".py") and f[0] != "_")
+
+
 def test_job_kinds_hold_their_interface():
-    kinds = sorted(f[:-3] for f in os.listdir(os.path.join(
-        harness.BENCH_DIR, "jobs")) if f.endswith(".py") and f[0] != "_")
+    kinds = _files("jobs")
     assert kinds
     for name in kinds:
         kind = harness.job_kind(name)
@@ -125,6 +131,34 @@ def test_job_kinds_hold_their_interface():
     assert used <= set(kinds)
     with pytest.raises(SystemExit):
         harness.job_kind("no_such_kind")
+
+
+def test_models_hold_their_interface():
+    models = _files("models")
+    assert models
+    numbers = [check.COMMON] + [harness.job_kind(k).NUMBERS
+                                for k in _files("jobs")]
+    for name in models:
+        model = harness.model_kind(name)
+        assert all(set(model.NUMBERS).isdisjoint(n) for n in numbers)
+        for fn in ("build", "view", "judge", "readings", "control"):
+            assert callable(getattr(model, fn)), (name, fn)
+        for method in ("energy", "candidates", "unary", "edge_weights",
+                       "label_problem", "field"):
+            assert callable(getattr(model.Reference, method)), (name, method)
+    used = {harness.config(c["name"])["model"] for c in SPEC["configs"]}
+    assert used <= set(models)
+    with pytest.raises(SystemExit):
+        harness.model_kind("no_such_model")
+
+
+def test_config_without_a_model_is_refused(monkeypatch):
+    cfg = harness._json(os.path.join(harness.BENCH_DIR, "configs",
+                                     SPEC["configs"][0]["name"] + ".json"))
+    del cfg["model"]
+    monkeypatch.setattr(harness, "_json", lambda path: dict(cfg))
+    with pytest.raises(SystemExit):
+        harness.config(SPEC["configs"][0]["name"])
 
 
 def test_pairs_unique():
@@ -168,6 +202,47 @@ def test_no_jax_anywhere(path):
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_reference_imports_nothing_of_the_program(path):
     assert not set(_imports(path)) & (FORBIDDEN | {"stereo_tpu_torch"})
+
+
+# the files that every model shares: none may lean on one model
+GENERIC = ["harness.py", "check.py", "calibrate.py", "run.py",
+           "reference/trws.py", "reference/fusion.py", "reference/planes.py"]
+
+
+def _names_in(path):
+    """Every module an import names, and every identifier, attribute,
+    argument and string (docstrings too) of the file."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.Name):
+            yield node.id
+        elif isinstance(node, ast.Attribute):
+            yield node.attr
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            yield node.name
+        elif isinstance(node, ast.arg):
+            yield node.arg
+        elif isinstance(node, ast.keyword) and node.arg:
+            yield node.arg
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+
+
+@pytest.mark.parametrize(
+    "rel", GENERIC + [os.path.join("jobs", f + ".py") for f in _files("jobs")]
+    + ["jobs/__init__.py"])
+def test_generic_files_name_no_model(rel):
+    # neither stereo_tpu_torch.models.ncc nor reference.ncc, nor a word of
+    # the NCC model: that lives in models/ncc.py and reference/ncc.py
+    named = [n for n in _names_in(os.path.join(harness.BENCH_DIR, rel))
+             if "ncc" in n.lower()]
+    assert not named, (rel, named)
 
 
 def test_forbidden_names_compared_whole(monkeypatch):
