@@ -11,11 +11,22 @@ proposals in the job's order, then the start field), in the program's node
 order.  That sweep's bound is a dual value,
 a lower bound of every labelling's energy whatever the messages say.
 
+A solve ends in one of two ways, told apart by the sweeps it returns: it
+stopped on its budget when they reach the program's ``maxiter``, and on
+its rule (the relgap) otherwise.  The certified gap is (E_reference(program's
+labelling) - certified bound) / E_reference, both ends taken by the
+reference; each way of stopping is judged on what it promises:
+
 - ``bound``: |program's bound - certified bound| / E_reference: a bound
   the sweeps inflated, or one summed wrong, reads far off;
-- ``gap``: (E_reference(program's labelling) - certified bound) /
-  E_reference: the configuration's stopping rule, with both ends taken by
-  the reference.
+- ``gap``: the certified gap of a solve that stopped on its rule, held to
+  the configuration's relgap; 0.0 for a budget stop, to which the rule
+  never applied;
+- ``budget_gap``: the certified gap of a solve that used up its budget,
+  held to what sound solves leave at that budget; 0.0 for a rule stop,
+  which ``gap`` already holds to the relgap.  A solve that closes its gap
+  on its last allowed sweep counts as a budget stop: its gap is then near
+  the relgap, which no ``budget_gap`` limit is below.
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ import torch
 
 from portbench.reference import trws as ref_trws
 
-NUMBERS = ("bound", "gap")
+NUMBERS = ("bound", "gap", "budget_gap")
 
 # the messages that the last chunk of the running solve returned
 _CAPTURE = {"messages": None}
@@ -83,7 +94,8 @@ class Job:
         return {"solve_s": elapsed / len(jobs)}
 
     def view(self) -> dict:
-        return dict(schedule=self.dm.schedule, band=self.dm.band)
+        return dict(schedule=self.dm.schedule, band=self.dm.band,
+                    maxiter=self.dm.maxiter, max_relgap=self.dm.max_relgap)
 
 
 def node_order(schedule: str, band: int, H: int, W: int, device):
@@ -116,7 +128,10 @@ def judge(ref, program: dict, jobs: list, order) -> list[dict]:
         if job.get("messages") is not None:
             lb = certified_bound(ref, program, job["messages"])
             e = ref.energy(job["planes"])
+            gap = (e - lb) / e
+            budget = job["sweeps"] >= program["maxiter"]
             row["bound"] = abs(job["bound"] - lb) / e
-            row["gap"] = (e - lb) / e
+            row["gap"] = 0.0 if budget else gap
+            row["budget_gap"] = gap if budget else 0.0
         rows.append(row)
     return rows

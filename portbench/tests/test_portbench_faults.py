@@ -5,8 +5,9 @@ reference's cost volume in bfloat16 handed to the program) and each fault
 planted in the program underneath the timed path are not: a step that
 returns its state unchanged, the energy taken over half the image and
 doubled, an answer altered where it is made, and (simultaneous fusion) a
-bound that the sweeps report too high.  One chip: there is no exchange
-between chips to leave out."""
+bound that the sweeps report too high and a solve that returns before its
+budget with its gap open.  One chip: there is no exchange between chips
+to leave out."""
 
 import pytest
 import torch
@@ -68,6 +69,17 @@ def _bound_inflated(mp):
     mp.setattr(banded, "_make_sweep_fn", broken)
 
 
+def _stops_early(mp):
+    """The banded solve returns after its first sweep, as if it had met the
+    rule: well before its budget, with its gap open."""
+    from stereo_tpu_torch.solvers import banded
+    solve = banded.solve_banded
+
+    def broken(*a, **kw):
+        return solve(*a, **dict(kw, maxiter=1, check_every=1))
+    mp.setattr(banded, "solve_banded", broken)
+
+
 def _move_unchanged(mp):
     """Every fusion move keeps the current labelling."""
     from stereo_tpu_torch.solvers import binary
@@ -123,10 +135,13 @@ def _altered(method):
 CELLS = {"ncc_teddy.simultaneous": dict(
              unchanged=_sweep_unchanged, half=_half_energy_banded,
              altered=_altered("simultaneous_fusion"),
-             inflated=_bound_inflated),
+             inflated=_bound_inflated, early=_stops_early),
          "ncc_teddy.fusion": dict(
              unchanged=_move_unchanged, half=_half_energy_fusion,
              altered=_altered("binary_fusion_sweep"))}
+# the number that a fault has to fail, where one alone can see it: a solve
+# that stopped short of its budget is held to the relgap by ``gap``
+FAILS = {"early": "gap"}
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
@@ -134,6 +149,8 @@ def test_sound_run_is_correct(cell):
     out = _run(cell)
     assert out["correct"], out["checks"]
     assert out["failed"] == 0 and out["attempted"] >= 1
+    if "budget_gap" in out["checks"]:  # the small solve meets its rule
+        assert out["checks"]["budget_gap"]["value"] == 0.0
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
@@ -152,3 +169,5 @@ def test_fault_is_not_correct(cell, fault, monkeypatch):
     out = _run(cell)
     assert not out["correct"], out["checks"]
     assert out["failed"] >= 1
+    if fault in FAILS:
+        assert not out["_ok"][FAILS[fault]], out["checks"]

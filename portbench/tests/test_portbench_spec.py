@@ -113,6 +113,20 @@ def test_gap_limit_is_the_stopping_rule():
             assert lims["gap"] == harness.config(cell["config"])["max_relgap"]
 
 
+SOLVE_CELLS = [w for w in SPEC["workloads"]
+               if harness.traffic(w["traffic"])["job"] == "simultaneous"]
+
+
+@pytest.mark.parametrize("cell", SOLVE_CELLS, ids=lambda w: w["name"])
+def test_budget_gap_limit_is_never_below_the_stopping_rule(cell):
+    # a solve that used up its sweeps is held no tighter than one that met
+    # the rule: a budget limit under the relgap would fail a solve that
+    # closes its gap on its last allowed sweep
+    lims = harness.limits(cell["name"])
+    assert "budget_gap" in lims
+    assert lims["budget_gap"] >= harness.config(cell["config"])["max_relgap"]
+
+
 def _files(sub):
     return sorted(f[:-3] for f in os.listdir(os.path.join(
         harness.BENCH_DIR, sub)) if f.endswith(".py") and f[0] != "_")
