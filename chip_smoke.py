@@ -38,6 +38,14 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      sweep over all 78, restart, simultaneous fusion over K = 79 labels with
      checkerboard TRW-S through the compact phase kernel; then repeats the
      first sweeps through the plain version and compares labels and energy;
+     every fusion move's K = 2 blocks go through the block kernel
+     (csrc/k2_block.cu), one launch a block;
+ 3a. the K = 2 block kernel on a teddy fusion move (the model's labelling
+     against its middle proposal): 10 blocks of 5 phase pairs in a row
+     against binary._k2_block (messages and labelling bit for bit, bound and
+     energy to rtol 1e-5), then the ms a block of both in turns, the card's
+     ms a launch and the plain version's device operations a block
+     (``k2_block``);
   4. drives trws.solve(compact=False) through the full-grid phase kernel and
      compares with the plain version;
   5. drives the main path again under the banded schedule (what
@@ -160,7 +168,9 @@ Needs one NVIDIA GPU (sm_90a) and nvcc; raises at once without a GPU.  It
      against the plain version, ``decode``), and prints the
      ``{"kernels": [...]}`` line, whose ``decode_banded`` row counts the
      decode kernel's launches on the banded main path (one a check) and
-     carries the errors the ``decode`` phase measured.
+     carries the errors the ``decode`` phase measured, and whose
+     ``k2_block`` row (3a.'s) counts the block kernel's launches in the
+     main path's fusion sweep.
 
 Every phase prints one JSON line; any failed check raises, so the exit code
 is non-zero and the last line is never printed.  The last line is
@@ -195,7 +205,7 @@ try:
     from stereo_tpu_torch.models.second_order import (SecondOrderStereo,
                                                       ojw_stereo)
     from stereo_tpu_torch.ops import (
-        _build, banded_decode, banded_kernel, minplus, phase_kernel,
+        _build, banded_decode, banded_kernel, k2_block, minplus, phase_kernel,
         wavefront_kernel)
     from stereo_tpu_torch.proposals import segmentation
     from stereo_tpu_torch.proposals import segpln as segpln_mod
@@ -230,6 +240,9 @@ PLAIN_SWEEPS_BANDED = 2
 BAND = 128
 # the decode kernel's timings start from the state of this many sweeps
 DECODE_SWEEPS = 8
+# the K = 2 block kernel: blocks in a row held against the plain version,
+# and phase pairs a block (binary_fuse's check_every)
+K2_BLOCKS, K2_CHECK_EVERY = 10, 5
 # the wavefront path: a sweep is 2 x 824 thin steps at teddy, so fewer of them
 MAXITER_WAVEFRONT = 16
 PLAIN_SWEEPS_WAVEFRONT = 2
@@ -276,6 +289,11 @@ KERNELS = {
         route="cuda", source="stereo_tpu_torch/csrc/banded_decode.cu",
         replaces="no TPU kernel: the lax.scan of "
                  "stereo_tpu/solvers/banded.py::_decode_state"),
+    "k2_block": dict(
+        wrapper=k2_block.k2_block,
+        route="cuda", source="stereo_tpu_torch/csrc/k2_block.cu",
+        replaces="no TPU kernel: the plain jnp K = 2 block of "
+                 "stereo_tpu/solvers/binary.py::binary_fuse"),
 }
 # (K, H, W, Bh, Bw) of the fused sweep's comparisons: ragged rows and
 # columns, Bh != Bw both ways (Lp > L), up to the main path's own shape; K
@@ -444,8 +462,8 @@ def phase_device_and_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    check(sorted(libs) == ["banded_decode", "banded_kernel", "minplus_pair",
-                           "minplus_send", "phase_kernel",
+    check(sorted(libs) == ["banded_decode", "banded_kernel", "k2_block",
+                           "minplus_pair", "minplus_send", "phase_kernel",
                            "wavefront_kernel"],
           f"built {sorted(libs)}")
     say("device+build", card=smi, torch=torch.__version__,
@@ -457,9 +475,11 @@ def phase_device_and_build():
 
 # ------------------------------------------- 2. kernels vs plain versions
 def phase_kernels_vs_plain() -> dict:
-    # the decode kernel is compared in the ``decode`` phase, which carries
-    # its own errors into the ``kernels`` line
-    err = {name: 0.0 for name in KERNELS if name != "decode_banded"}
+    # the decode kernel is compared in the ``decode`` phase and the K = 2
+    # block kernel in the ``k2_block`` phase, which carry their own errors
+    # into the ``kernels`` line
+    err = {name: 0.0 for name in KERNELS
+           if name not in ("decode_banded", "k2_block")}
     cases = phase_vs_plain(err) + send_vs_plain(err)
     cases += banded_sweep_vs_plain(err) + pair_vs_plain(err)
     cases += wavefront_sweep_vs_plain(err)
@@ -872,6 +892,9 @@ def phase_main_path():
         raise AssertionError(f"lower bound decreased between chunks: {lbs}")
     if any(s["lower_bound"] > s["energy"] for s in trace.samples):
         raise AssertionError("lb > E at a check")
+    # every fusion move runs at least one K = 2 block, one launch each
+    check(counts["k2_block"] >= n_prop,
+          f"{counts['k2_block']} K = 2 block launches for {n_prop} moves")
     if counts["phase_messages_compact"] != 2 * iters or iters == 0:
         raise AssertionError(
             f"compact kernel launches {counts['phase_messages_compact']} != "
@@ -908,6 +931,93 @@ def phase_main_path():
     same_depth = dict(sweeps=iters, energy=e, lower_bound=lb,
                       samples=trace.samples)
     return counts, dm, proposals, same_depth
+
+
+# ------------------------------------------- 3a. the K = 2 block kernel
+def k2_inputs(dm, proposals) -> list:
+    """(theta0, theta1, M, V, gamma, valid, cb) of a teddy fusion move, the
+    model's labelling against its middle proposal, as binary_fuse builds
+    them, with zero messages."""
+    H, W = dm.sz
+    cur, prop = dm.assignment, dm._tensor(proposals[len(proposals) // 2])
+    D0, Q = binary.fusion_problem(cur, prop, dm.normalize)
+    return [dm.unary_map(cur).contiguous(), dm.unary_map(prop).contiguous(),
+            torch.zeros((4, H, W), device=DEV),
+            binary._tables(D0, Q, dm.smooth_weights, dm.smoothness_kernel,
+                           dm.tol),
+            trws.node_gamma(H, W, torch.float32, device=DEV),
+            energy_mod.default_weights(H, W, torch.float32, device=DEV),
+            trws.checkerboard(H, W, device=DEV)]
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, sets) one call of ``fn``
+    makes (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_k2_block(dm, proposals, smi) -> dict:
+    """The ``k2_block`` line: the K = 2 block kernel on a teddy fusion move
+    (``k2_inputs``), K2_BLOCKS blocks of K2_CHECK_EVERY phase pairs in a row
+    against binary._k2_block (messages and labelling bit for bit, bound and
+    energy to rtol 1e-5, one launch a block); then the ms a block of the
+    kernel and of the plain version in turns (plain, kernel, kernel, plain;
+    CUDA events), the card's ms a launch (torch.profiler), the plain
+    version's device operations a block, and the bytes bound
+    (ops/k2_block.py::block_bytes); returns the ``kernels`` row."""
+    H, W = dm.sz
+    inp = k2_inputs(dm, proposals)
+    before = k2_block.k2_block.launches
+    lb_err = e_err = 0.0
+    for _ in range(K2_BLOCKS):
+        M, lb, z, e = k2_block.k2_block(*inp, K2_CHECK_EVERY)
+        rM, rlb, rz, re_ = binary._k2_block(*inp, K2_CHECK_EVERY)
+        check(torch.equal(M, rM) and torch.equal(z, rz),
+              "K = 2 block kernel: messages or labelling differ from the "
+              "plain version")
+        lb_err = max(lb_err, abs(float(lb) - float(rlb)) / abs(float(rlb)))
+        e_err = max(e_err, abs(float(e) - float(re_)) / abs(float(re_)))
+        inp[2] = rM
+    check(lb_err <= 1e-5 and e_err <= 1e-5,
+          f"K = 2 block kernel: bound off by {lb_err}, energy by {e_err}")
+    check(k2_block.k2_block.launches - before == K2_BLOCKS,
+          "K = 2 block kernel: not one launch a block")
+
+    def kernel_call():
+        k2_block.k2_block(*inp, K2_CHECK_EVERY)
+
+    def plain_call():
+        binary._k2_block(*inp, K2_CHECK_EVERY)
+
+    turns = {"plain": [], "kernel": []}
+    for _ in range(2):
+        for name in ("plain", "kernel", "kernel", "plain"):
+            turns[name].append(time_ms(kernel_call, 20) if name == "kernel"
+                               else time_ms(plain_call, 3, warmup=1))
+    on_device = device_ms(kernel_call, 20, "k2_block_kernel")
+    bytes_ms = k2_block.block_bytes(H, W) / PEAK_BYTES * 1e3
+    row = dict(ms=statistics.median(turns["kernel"]), device_ms=on_device,
+               plain_ms=statistics.median(turns["plain"]), in_turns=turns,
+               bound_ms=bytes_ms, bound_by="bytes", bytes_ms=bytes_ms,
+               us_per_phase=on_device * 1e3 / (2 * K2_CHECK_EVERY),
+               plain_device_ops=device_ops(plain_call),
+               kernel_device_ops=device_ops(kernel_call),
+               grid=k2_block.k2_block.grid, max_abs_err=e_err,
+               lb_rel_err=lb_err, energy_rel_err=e_err,
+               shape=dict(H=H, W=W, check_every=K2_CHECK_EVERY),
+               blocks_compared=K2_BLOCKS)
+    say("k2_block", card=smi, **row)
+    del inp
+    torch.cuda.empty_cache()
+    return row
 
 
 # -------------------------------------------- 5. main path, banded schedule
@@ -2862,7 +2972,7 @@ def sweep_rows(name: str, time_sweep, reps15: int, reps202: int) -> dict:
     return out
 
 
-def phase_timings(launches: dict, err: dict, smi: str) -> list:
+def phase_timings(launches: dict, err: dict, smi: str, k2_row: dict) -> list:
     K, H, W = FULL
     rows = time_phase(K, H, W)
     # the phase kernels at baby2's K = 15 (synthetic data), where the bytes
@@ -2946,14 +3056,15 @@ def phase_timings(launches: dict, err: dict, smi: str) -> list:
                      **sweep_rows("sweep_wavefront", time_wavefront_sweep, 6,
                                   2)))
     rows.append(dict(name="decode_banded", **phase_decode(smi)))
+    rows.append(dict(name="k2_block", **k2_row))
     for r in rows:
         meta = KERNELS[r["name"]]
         r.update(route=meta["route"], source=meta["source"],
                  replaces=meta["replaces"], launches=launches[r["name"]],
                  # no single PyTorch call computes a min-plus phase, a pair,
-                 # a column send, a sweep or a decode
+                 # a column send, a sweep, a decode or a K = 2 block
                  library_ms=None)
-        if "max_abs_err" not in r:  # the decode row keeps its phase's
+        if "max_abs_err" not in r:  # the decode and K = 2 rows keep theirs
             r["max_abs_err"] = err[r["name"]]
         if r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} was never launched on "
@@ -2967,6 +3078,7 @@ def main():
 
     reset_counts()
     main_counts, dm, proposals, same_depth = phase_main_path()
+    k2_row = phase_k2_block(dm, proposals, smi)
     reset_counts()
     full_counts = phase_full_grid_path()
     reset_counts()
@@ -3002,9 +3114,11 @@ def main():
                          + wavefront_steps_counts["minplus_send"]),
         "minplus_pair": pair_counts["minplus_pair"],
         "sweep_wavefront": wavefront_counts["sweep_wavefront"],
-        "decode_banded": banded_counts["decode_banded"]}
+        "decode_banded": banded_counts["decode_banded"],
+        # the main path's binary fusion sweep, one a block
+        "k2_block": main_counts["k2_block"]}
 
-    rows = phase_timings(launches, err, smi)
+    rows = phase_timings(launches, err, smi, k2_row)
     for r in rows:
         if r["name"] in baby2_counts:
             r["launches_baby2_k15"] = baby2_counts[r["name"]]

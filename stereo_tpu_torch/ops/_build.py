@@ -33,7 +33,8 @@ EXTRA_FLAGS = {"banded_decode": ("-fmad=false",),
                "minplus_send": ("-fmad=false",),
                "minplus_pair": ("-fmad=false",),
                "banded_kernel": ("-fmad=false",),
-               "wavefront_kernel": ("-fmad=false",)}
+               "wavefront_kernel": ("-fmad=false",),
+               "k2_block": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}  # name -> {"seconds", "ptxas", "path"}

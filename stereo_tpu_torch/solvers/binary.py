@@ -9,8 +9,10 @@ K = 2 specialization: a normalized 2-vector message has one degree of
 freedom, so each directed-edge buffer is a single signed plane ``md`` with
 (msg0, msg1) = (relu(-md), relu(md)); the 2x2 pairwise tables are precomputed
 once per move as 16 [H, W] planes.  Every phase is a short chain of
-elementwise min/add ops on [H, W] planes — plain PyTorch ops, no hand-written
-kernel (the JAX package has none here either).
+elementwise min/add ops on [H, W] planes.  A block of phases with its bound,
+decode and energy (``_k2_block``, plain PyTorch) runs on the card as one
+launch of a hand-written kernel (``ops/k2_block.py``); the JAX package has no
+kernel here, XLA fuses its plain jnp.
 
 Move acceptance: the decoded labeling's "take" mask is split into 4-connected
 components; distinct components share no edge, so the energy delta of
@@ -31,6 +33,7 @@ from stereo_tpu_torch.device import acc_dtype
 from stereo_tpu_torch.energy import (default_weights, normalized,
                                      truncated_kernel)
 from stereo_tpu_torch.geometry import NUM_DIRS, OPP
+from stereo_tpu_torch.ops.k2_block import k2_block
 from stereo_tpu_torch.solvers import trws
 from stereo_tpu_torch.utils.profiling import span
 
@@ -179,6 +182,26 @@ def _k2_energy(z, theta0, theta1, V, own=None):
         zn = geometry.shift_from_neighbor(z, d, fill=False)
         E = E + trws._own_sum(own, _edge_cost(V[d], zn, z))
     return E
+
+
+def _k2_block(theta0, theta1, M, V, gamma, valid, cb, check_every: int):
+    """One block of the K = 2 TRW-S: ``check_every`` phase pairs from the
+    messages ``M``, the bound, the decode and the decoded labelling's energy
+    -> (M, lb, z, energy).  The plain version of ops/k2_block.py::k2_block,
+    which binary_fuse calls (this on a CPU problem, the kernel on the
+    card)."""
+    black = cb == 0
+    white = cb == 1
+    for _ in range(check_every):
+        M, _ = _k2_phase(theta0, theta1, M, V, gamma, valid, black,
+                         accumulate_lb=False)
+        M, lb_sweep = _k2_phase(theta0, theta1, M, V, gamma, valid, white,
+                                accumulate_lb=True)
+    # blacks contribute their belief minima (as in trws.solve)
+    D0b, D1b = _beliefs(theta0, theta1, M)
+    lb = lb_sweep + trws._masked_sum(black, torch.minimum(D0b, D1b))
+    z = _k2_decode(theta0, theta1, M, V, cb)
+    return M, lb, z, _k2_energy(z, theta0, theta1, V)
 
 
 def _shift_in(v, k, axis, fill):
@@ -478,14 +501,13 @@ def binary_fuse(
     mask before acceptance."""
     H, W = unary0.shape
     dtype, dev = unary0.dtype, unary0.device
-    theta0, theta1 = unary0, unary1
+    # the card's block kernel reads raw pointers
+    theta0, theta1 = unary0.contiguous(), unary1.contiguous()
     with span("fusion.k2_pack"):
         V = _tables(D0, Q, alphas, kernel, tol)
         cb = trws.checkerboard(H, W, device=dev)
         gamma = trws.node_gamma(H, W, dtype, device=dev)
         valid = default_weights(H, W, dtype, device=dev)
-        black = cb == 0
-        white = cb == 1
         M = torch.zeros((NUM_DIRS, H, W), dtype=dtype, device=dev)
         acc_t = acc_dtype(dtype)
         zero = torch.zeros((), dtype=acc_t, device=dev)
@@ -495,16 +517,8 @@ def binary_fuse(
     while it < maxiter and (it == 0 or trws._gap_open(
             energy, lb, max_relgap, "fusion.k2_stop")):
         with span("fusion.k2_sweeps"):
-            for _ in range(check_every):
-                M, _ = _k2_phase(theta0, theta1, M, V, gamma, valid, black,
-                                 accumulate_lb=False)
-                M, lb_sweep = _k2_phase(theta0, theta1, M, V, gamma, valid,
-                                        white, accumulate_lb=True)
-            # blacks contribute their belief minima (as in trws.solve)
-            D0b, D1b = _beliefs(theta0, theta1, M)
-            lb = lb_sweep + trws._masked_sum(black, torch.minimum(D0b, D1b))
-            z = _k2_decode(theta0, theta1, M, V, cb)
-            energy = _k2_energy(z, theta0, theta1, V)
+            M, lb, z, energy = k2_block(theta0, theta1, M, V, gamma, valid,
+                                        cb, check_every)
         it += check_every
 
     with span("fusion.accept"):

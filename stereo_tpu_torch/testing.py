@@ -192,3 +192,24 @@ def random_planes(seed: int, H: int, W: int, dtype=np.float64):
     p = rng.standard_normal((4, H, W))
     p[2] = np.sign(p[2]) * (np.abs(p[2]) + 0.5)
     return p.astype(dtype)
+
+
+def fusion_move(seed: int, H: int, W: int, dtype=np.float32) -> dict:
+    """A random fusion move whose pairwise terms are partly truncated and
+    partly not: ``cur`` and ``prop`` [4, H, W] near-fronto-parallel planes
+    at disparities in [0, 4) (slopes about 1e-3), unaries ``U0``, ``U1``
+    [H, W] in [0, 3), edge weights ``w`` [4, H, W] in [0.5, 2), 0 at the
+    borders."""
+    rng = np.random.default_rng(seed)
+
+    def planes():
+        p = np.zeros((4, H, W))
+        p[:2] = rng.normal(0, 1e-3, (2, H, W))
+        p[2] = 1.0
+        p[3] = -rng.uniform(0, 4, (H, W))
+        return p
+
+    out = dict(cur=planes(), prop=planes(), U0=rng.uniform(0, 3, (H, W)),
+               U1=rng.uniform(0, 3, (H, W)),
+               w=border_weights(H, W) * rng.uniform(0.5, 2.0, (4, H, W)))
+    return {k: v.astype(dtype) for k, v in out.items()}

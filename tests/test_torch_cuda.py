@@ -913,3 +913,120 @@ def test_banded_stripes_on_one_card(cuda, n):
     assert t_mp.minplus_send.launches == 2 * 2 * spec.T * n
     assert torch.equal(res.labels, bestL)
     assert torch.equal(res.messages, run.messages(st))
+
+
+# ------------------------------------------- the K = 2 block kernel
+# the kernel sums the bound and the energy in double, the plain version in
+# float32
+K2_RTOL = 1e-5
+
+
+def _k2_inputs(cuda, seed, H, W, kernel=1, tol=0.9):
+    """(theta0, theta1, M, V, gamma, valid, cb) of a random fusion move on
+    the card, as binary_fuse builds them, with zero messages."""
+    from stereo_tpu_torch import energy as t_energy
+    from stereo_tpu_torch.solvers import binary as t_binary
+
+    mv = {k: torch.as_tensor(v, device=cuda)
+          for k, v in testing.fusion_move(seed, H, W).items()}
+    D0, Q = t_binary.fusion_problem(mv["cur"], mv["prop"])
+    return (mv["U0"], mv["U1"], torch.zeros((4, H, W), device=cuda),
+            t_binary._tables(D0, Q, mv["w"], kernel, tol),
+            t_trws.node_gamma(H, W, torch.float32, device=cuda),
+            t_energy.default_weights(H, W, torch.float32, device=cuda),
+            t_trws.checkerboard(H, W, device=cuda))
+
+
+@pytest.mark.parametrize("check_every", [5, 1])
+@pytest.mark.parametrize("H,W,kernel", [(375, 450, 1), (7, 9, 2), (2, 5, 1),
+                                        (40, 66, 1), (33, 2, 2)])
+def test_k2_block_kernel_on_card(cuda, H, W, kernel, check_every):
+    """The block kernel against binary._k2_block over 10 blocks in a row,
+    each from the last one's messages (checked after 1, 2 and 10): the
+    messages and the labelling bit for bit, the bound and the energy to
+    float32 rounding; one launch a block; the input messages unchanged."""
+    from stereo_tpu_torch.ops import k2_block as t_k2
+    from stereo_tpu_torch.solvers import binary as t_binary
+
+    inp = list(_k2_inputs(cuda, H * W, H, W, kernel))
+    before = t_k2.k2_block.launches
+    for block in range(1, 11):
+        M0 = inp[2].clone()
+        M, lb, z, e = t_k2.k2_block(*inp, check_every)
+        torch.cuda.synchronize()
+        assert torch.equal(inp[2], M0)
+        rM, rlb, rz, re_ = t_binary._k2_block(*inp, check_every)
+        if block in (1, 2, 10):
+            assert torch.equal(M, rM) and torch.equal(z, rz)
+            assert lb.dtype == e.dtype == torch.float32 and lb.dim() == 0
+            np.testing.assert_allclose(float(lb), float(rlb), rtol=K2_RTOL)
+            np.testing.assert_allclose(float(e), float(re_), rtol=K2_RTOL)
+        inp[2] = rM
+    assert t_k2.k2_block.launches - before == 10
+    assert M.abs().max() > 0 and 0 < int(z.sum()) < H * W
+
+
+def test_k2_block_kernel_is_repeatable_on_card(cuda):
+    """Two launches on one warm state at teddy's shape give the same bits:
+    messages, labelling, bound and energy."""
+    from stereo_tpu_torch.ops import k2_block as t_k2
+
+    inp = list(_k2_inputs(cuda, 11, 375, 450))
+    inp[2] = t_k2.k2_block(*inp, 5)[0]
+    runs = [t_k2.k2_block(*inp, 5) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("maxiter", [20, 50])
+def test_binary_fuse_take_kernel_equals_plain_on_card(cuda, monkeypatch,
+                                                      maxiter):
+    """binary_fuse at teddy's shape at max_relgap 0 (the iteration cap
+    stops it): through the kernel, one launch a block, the same take,
+    iterations and energy as with the plain block."""
+    from stereo_tpu_torch.ops import k2_block as t_k2
+    from stereo_tpu_torch.solvers import binary as t_binary
+
+    H, W = 375, 450
+    mv = {k: torch.as_tensor(v, device=cuda)
+          for k, v in testing.fusion_move(7, H, W).items()}
+    D0, Q = t_binary.fusion_problem(mv["cur"], mv["prop"])
+    kw = dict(kernel=1, tol=0.9, maxiter=maxiter, max_relgap=0.0)
+    before = t_k2.k2_block.launches
+    got = t_binary.binary_fuse(mv["U0"], mv["U1"], D0, Q, mv["w"], **kw)
+    torch.cuda.synchronize()
+    assert t_k2.k2_block.launches - before == maxiter // 5
+    monkeypatch.setattr(t_binary, "k2_block", t_binary._k2_block)
+    ref = t_binary.binary_fuse(mv["U0"], mv["U1"], D0, Q, mv["w"], **kw)
+    assert got.iterations == ref.iterations == maxiter
+    assert torch.equal(got.take, ref.take) and int(got.take.sum()) > 0
+    assert torch.equal(got.energy, ref.energy)
+    np.testing.assert_allclose(float(got.lower_bound),
+                               float(ref.lower_bound), rtol=K2_RTOL)
+
+
+def test_k2_block_raises_on_card_for_bad_input(cuda):
+    from stereo_tpu_torch.ops import k2_block as t_k2
+
+    inp = list(_k2_inputs(cuda, 3, 8, 10))
+
+    def call(i, t, check_every=5):
+        args = list(inp)
+        args[i] = t
+        return t_k2.k2_block(*args, check_every)
+    with pytest.raises(ValueError, match="float32"):
+        call(0, inp[0].double())
+    with pytest.raises(ValueError, match="expected"):
+        call(1, inp[1].cpu())
+    with pytest.raises(ValueError, match="shape"):
+        call(3, inp[3][:, :, :, :-1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(2, inp[2].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="int32"):
+        call(6, inp[6].long())
+    with pytest.raises(ValueError, match="check_every"):
+        call(2, inp[2], 0)
+    small = _k2_inputs(cuda, 3, 1, 10)
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        t_k2.k2_block(*small, 5)

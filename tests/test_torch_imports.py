@@ -354,8 +354,8 @@ def test_build_digest_covers_shared_headers(tmp_path):
     assert target("other")[1] == other2  # another source's bytes do not count
     (csrc / "second.cuh").write_text("")
     assert target("other")[1] != other2
-    # the package's own six sources are all built without FMA contraction
-    assert _build.sources() == ["banded_decode", "banded_kernel",
+    # the package's own seven sources are all built without FMA contraction
+    assert _build.sources() == ["banded_decode", "banded_kernel", "k2_block",
                                 "minplus_pair", "minplus_send",
                                 "phase_kernel", "wavefront_kernel"]
     for name in _build.sources():
