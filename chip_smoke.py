@@ -212,7 +212,6 @@ try:
     from stereo_tpu_torch.render import OcclRenderOptions, render_occl
     from stereo_tpu_torch.render.edgemodes import render_edgemodes
     from stereo_tpu_torch import entry, energy as energy_mod
-    from stereo_tpu_torch.parallel import batch as batch_mod
     from stereo_tpu_torch.parallel import fusion_dist, mesh as mesh_mod
     from stereo_tpu_torch.solvers import (banded, banded_dist, binary,
                                           hierarchy, qpbo_host, scanline,
@@ -2246,7 +2245,7 @@ def parallel_pool(smi) -> int:
     (mesh, models, props), t_build = timed(lambda: run_batch_torch.build(a))
     singles = []
     for dm_, pr in zip(models, props):
-        u, d0, q, al, _ = batch_mod.model_problem(dm_, pr)
+        u, d0, q, al, _ = dm_.simultaneous_problem(pr)
         singles.append(float(trws.solve(
             u, d0, q, al, kernel=1, tol=dm_.tol, maxiter=a.maxiter,
             max_relgap=1e-4, check_every=a.check_every).energy))
@@ -2343,7 +2342,7 @@ def phase_parallel_path(dm, proposals, smi) -> dict:
     the launches of kernels 1, 2 and 4 on the sharded runs."""
     dm.restart()
     t0 = time.perf_counter()
-    unary, D0, Q, alphas, _ = batch_mod.model_problem(dm, proposals)
+    unary, D0, Q, alphas, _ = dm.simultaneous_problem(proposals)
     args = (unary, D0, Q, alphas)
     kw = dict(kernel=dm.smoothness_kernel, tol=dm.tol, maxiter=PAR_SWEEPS,
               max_relgap=0.0, check_every=PAR_SWEEPS)

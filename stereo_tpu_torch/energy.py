@@ -55,6 +55,20 @@ def normalized(x, normalize: tuple | None):
     return (x - normalize[0]) / x.new_full((), normalize[1])
 
 
+def positions(planes, normalize: tuple | None, x0: int = 0):
+    """Pairwise positions of a plane field [..., 4, H, W]: each pixel's own
+    disparity D0 [..., H, W] and its four neighbours' planes evaluated at the
+    pixel, Q [4, ..., H, W] (0 at the borders), both normalized.  ``x0``: the
+    global column of column 0 (geometry.grid_points)."""
+    D0 = normalized(geometry.own_disparity(planes, x0), normalize)
+    Q = torch.stack(
+        [normalized(
+            geometry.neighbor_plane_disparity(planes, d, fill=0.0, x0=x0),
+            normalize)
+         for d in range(NUM_DIRS)], dim=0)
+    return D0, Q
+
+
 def pairwise_energy_map(planes, weights, kernel: int, tol,
                         normalize: tuple | None = None):
     """Per-pixel sum of in-edge smoothness costs. [4,H,W] planes -> [H,W]."""

@@ -29,7 +29,14 @@ from stereo_tpu_torch.solvers import (banded, binary, qpbo_host, scanline,
                                       trws, wavefront)
 from stereo_tpu_torch.utils.profiling import span
 
-_SCHEDULES = ("checkerboard", "scanline", "wavefront", "banded")
+# schedule -> (its solver's module, the solver's name there, looked up at
+# each call; the DispMap attribute that holds its chunk of sweeps)
+_SCHEDULES = {
+    "checkerboard": (trws, "solve", "solver_chunk"),
+    "scanline": (scanline, "solve_scanline", "solver_chunk_scanline"),
+    "wavefront": (wavefront, "solve_wavefront", "solver_chunk_wavefront"),
+    "banded": (banded, "solve_banded", "solver_chunk_banded"),
+}
 
 
 def _check_schedule(schedule: str):
@@ -306,6 +313,19 @@ class DispMap:
     solver_chunk_wavefront: int = 150
     solver_chunk_banded: int = 400
 
+    def simultaneous_problem(self, proposals):
+        """The K-label problem of a simultaneous fusion over ``proposals``,
+        the incumbent appended as the last label (dispmap_super.m:158).
+
+        Returns (unary [K,H,W], D0 [K,H,W], Q [4,K,H,W], alphas [4,H,W],
+        the label planes [K,4,H,W]), on the model's device."""
+        all_props = [self._tensor(p) for p in proposals]
+        all_props.append(self._assignment)
+        stack = torch.stack(all_props, dim=0)
+        unary = torch.stack([self.unary_map(p) for p in all_props], dim=0)
+        D0, Q = energy.positions(stack, self.normalize)
+        return unary, D0, Q, self.smooth_weights, stack
+
     def simultaneous_fusion(self, proposals, verbose: bool = False,
                             trace=None) -> tuple[float, float, int]:
         """Fuse all proposals at once with TRW-S.  The incumbent assignment
@@ -313,10 +333,8 @@ class DispMap:
         """
         _check_schedule(self.schedule)
         with span("trws.pack"):
-            all_props = [self._tensor(p) for p in proposals]
-            all_props.append(self._assignment)
-            stack = torch.stack(all_props, dim=0)  # [K, 4, H, W]
-            unary = torch.stack([self.unary_map(p) for p in all_props], dim=0)
+            unary, D0, Q, alphas, stack = self.simultaneous_problem(
+                proposals)
 
         messages = None
         total_iters = 0
@@ -327,18 +345,13 @@ class DispMap:
         # last
         best_e = float("inf")
         best_labels = None
-        chunk_size = {
-            "scanline": self.solver_chunk_scanline,
-            "wavefront": self.solver_chunk_wavefront,
-            "banded": self.solver_chunk_banded,
-        }.get(self.schedule, self.solver_chunk)
+        chunk_size = getattr(self, _SCHEDULES[self.schedule][2])
         while total_iters < self.maxiter:
             chunk = min(chunk_size, self.maxiter - total_iters)
             labels, e, lb, iters, messages = _simultaneous_fusion_step(
-                stack, unary, self.smooth_weights, self.smoothness_kernel,
-                self.tol, self.normalize, chunk, self.max_relgap,
-                self.check_every, messages, self.use_kernel,
-                self.schedule, self.band)
+                unary, D0, Q, alphas, self.smoothness_kernel, self.tol,
+                chunk, self.max_relgap, self.check_every, messages,
+                self.use_kernel, self.schedule, self.band)
             with span("trws.finish"):
                 ef, lbf = float(e), float(lb)
             total_iters += int(iters)
@@ -383,20 +396,6 @@ class DispMap:
 # --------------------------------------------------------------- core steps
 
 
-def _positions(planes, normalize, x0: int = 0):
-    """Pairwise positions of a plane field [..., 4, H, W]: each pixel's own
-    disparity D0 [..., H, W] and its four neighbours' planes evaluated at the
-    pixel, Q [4, ..., H, W] (0 at the borders).  ``x0``: the global column
-    of column 0 (geometry.grid_points)."""
-    D0 = energy.normalized(geometry.own_disparity(planes, x0), normalize)
-    Q = torch.stack(
-        [energy.normalized(
-            geometry.neighbor_plane_disparity(planes, d, fill=0.0, x0=x0),
-            normalize)
-         for d in range(geometry.NUM_DIRS)], dim=0)
-    return D0, Q
-
-
 def _fusion_sweep(current, prop_stack, weights, kernel, tol, normalize,
                   unary_p, live=None, improve=0):
     """Fusion moves over a [P, 4, H, W] proposal stack, in order.
@@ -418,13 +417,13 @@ def _fusion_sweep(current, prop_stack, weights, kernel, tol, normalize,
             live = torch.ones((P,), dtype=torch.bool, device=current.device)
         cur = current
         U0 = unary_p(cur)
-        D0c, Qc = _positions(cur, normalize)
+        D0c, Qc = energy.positions(cur, normalize)
     es, lbs = [], []
     for i in range(P):
         with span("fusion.proposal"):
             prop = prop_stack[i]
             U1 = unary_p(prop)
-            D0p, Qp = _positions(prop, normalize)
+            D0p, Qp = energy.positions(prop, normalize)
             D0 = torch.stack([D0c, D0p], dim=0)  # [2, H, W]
             Q = torch.stack([Qc, Qp], dim=1)  # [4, 2, H, W]
         res = binary.binary_fuse(U0, U1, D0, Q, weights, kernel=kernel,
@@ -445,27 +444,19 @@ def _fusion_sweep(current, prop_stack, weights, kernel, tol, normalize,
         return cur, torch.stack(es), torch.stack(lbs)
 
 
-def _simultaneous_fusion_step(prop_stack, unary, weights, kernel, tol,
-                              normalize, maxiter, max_relgap, check_every=1,
-                              messages=None, use_kernel=True,
-                              schedule="checkerboard", band=128):
-    """One chunk of TRW-S on the K-label fusion problem, under the
-    checkerboard, the banded, the raster-wavefront or the scanline
-    schedule."""
-    with span("trws.pack"):
-        D0, Q = _positions(prop_stack, normalize)  # [K, H, W], [4, K, H, W]
+def _simultaneous_fusion_step(unary, D0, Q, weights, kernel, tol, maxiter,
+                              max_relgap, check_every=1, messages=None,
+                              use_kernel=True, schedule="checkerboard",
+                              band=128):
+    """One chunk of TRW-S on the K-label fusion problem (DispMap.
+    simultaneous_problem's) under one of the _SCHEDULES; the banded one
+    takes blocks of ``band`` clamped to the image."""
+    module, name, _ = _SCHEDULES[schedule]
     extra = {}
     if schedule == "banded":
-        _solve = banded.solve_banded
         H, W = unary.shape[-2:]
         extra = dict(Bh=max(2, min(band, H)), Bw=max(2, min(band, W)))
-    elif schedule == "wavefront":
-        _solve = wavefront.solve_wavefront
-    elif schedule == "scanline":
-        _solve = scanline.solve_scanline
-    else:
-        _solve = trws.solve
-    res = _solve(
+    res = getattr(module, name)(
         unary, D0, Q, weights, kernel=kernel, tol=tol, maxiter=maxiter,
         max_relgap=max_relgap, check_every=check_every, messages=messages,
         use_kernel=use_kernel, **extra)

@@ -23,7 +23,7 @@ the plain version is index arithmetic, with the guard before the load.
 Built with ``-fmad=false``, and every term added in ``_decode_step``'s
 order: the labels equal the plain version's bit for bit (ties to the
 lowest label, as ``torch.argmin``); the energy is accumulated per lane in
-double and agrees to float32 rounding (rtol 1e-5).  It takes every K (no
+double and agrees to float32 rounding (rtol 1e-6).  It takes every K (no
 shared memory grows with K) and every T >= 3.  Inputs must be finite.
 No single PyTorch call computes the decode, so there is no library
 yardstick.  PERF.md has the times.

@@ -16,22 +16,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from stereo_tpu_torch.models.base import _positions
 from stereo_tpu_torch.parallel import mesh as mesh_mod
-
-
-def model_problem(dm, props):
-    """One model's simultaneous-fusion inputs (the incumbent appended, as
-    dispmap_super.m:158 does).
-
-    Returns (unary [K,H,W], D0 [K,H,W], Q [4,K,H,W], alphas [4,H,W],
-    prop_stack [K,4,H,W]), on the model's device."""
-    all_props = [dm._tensor(p) for p in props]
-    all_props.append(dm.assignment)
-    stack = torch.stack(all_props, dim=0)
-    unary = torch.stack([dm.unary_map(p) for p in all_props], dim=0)
-    D0, Q = _positions(stack, dm.normalize)
-    return unary, D0, Q, dm.smooth_weights, stack
 
 
 def batched_problem(models, proposals_per_model):
@@ -46,7 +31,7 @@ def batched_problem(models, proposals_per_model):
         raise ValueError(
             f"batched fusion needs same-shaped problems, got sizes "
             f"{sorted(shapes)}")
-    parts = [model_problem(dm, props)
+    parts = [dm.simultaneous_problem(props)
              for dm, props in zip(models, proposals_per_model)]
     dev = parts[0][0].device
     return tuple(torch.stack([p[i].to(dev) for p in parts])
@@ -128,7 +113,8 @@ def simultaneous_fusion_pool(models, proposals_per_model, mesh, *,
 
     def load(i):
         if i not in problems:
-            problems[i] = model_problem(models[i], proposals_per_model[i])
+            problems[i] = models[i].simultaneous_problem(
+                proposals_per_model[i])
         return problems[i]
 
     K = len(proposals_per_model[0]) + 1

@@ -36,7 +36,6 @@ from stereo_tpu_torch import energy, geometry
 from stereo_tpu_torch.device import acc_dtype
 from stereo_tpu_torch.energy import default_weights
 from stereo_tpu_torch.geometry import NUM_DIRS
-from stereo_tpu_torch.models.base import _positions
 from stereo_tpu_torch.parallel.mesh import Columns, Mesh
 from stereo_tpu_torch.solvers import binary, trws
 
@@ -242,7 +241,7 @@ def _fuse(sh: _Shards, U0, U1, D0, Q, w, *, kernel, tol, maxiter,
 
 def _problem_of(sh: _Shards, planes, normalize):
     """(D0, Q) spans of a plane field's spans, halos right."""
-    pos = [_positions(p, normalize, x0=sh.x0(k))
+    pos = [energy.positions(p, normalize, x0=sh.x0(k))
            for k, p in enumerate(planes)]
     Q = [q for _, q in pos]
     sh.cols.exchange(Q)  # a span's edge columns lack their outer neighbour

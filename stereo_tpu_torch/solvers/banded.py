@@ -70,6 +70,9 @@ sweeps and both values of ``use_kernel`` give the same messages and labels
 (bit for bit in float32 on the card); the fused kernels' lower bound and
 energy are summed in another order and agree to float32 rounding.
 
+The one driver of solvers/trws.py runs ``solve_banded`` and ``BandedRun``
+through ``_Banded``, which holds the chosen sweep and decode.
+
 ``_BandedProblem(stripe=...)`` builds one gy-stripe of a taller image for
 the distributed solver (solvers/banded_dist.py).  The JAX package's
 banded solver has no narrow message storage (only its checkerboard solver
@@ -87,15 +90,13 @@ from stereo_tpu_torch.device import DEFAULT_DEVICE, acc_dtype, resolve_device
 from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.geometry import take_plane
 from stereo_tpu_torch.ops import banded_decode, banded_kernel
-from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
+from stereo_tpu_torch.solvers.trws import (Packed, PreparedRun, TRWSResult,
+                                          drive)
 from stereo_tpu_torch.solvers import wavefront
-from stereo_tpu_torch.utils.profiling import span
 from stereo_tpu_torch.solvers.wavefront import (
     DN, GROUP_A, GROUP_B, LT, RT, UP, _head, _sends, _tail, skew, unskew)
 
 __all__ = ["solve_banded", "banded_order", "BandedSpec", "BandedRun"]
-
-_SWEEPS = ("fused", "steps")
 
 
 @dataclass(frozen=True)
@@ -718,22 +719,35 @@ def _decode_state(bp: _BandedProblem, state):
     return labels, E
 
 
-def _check_sweep(sweep: str):
-    if sweep not in _SWEEPS:
-        raise ValueError(f"unknown sweep {sweep!r}; one of {_SWEEPS}")
-
-
 def _make_sweep_fn(bp: _BandedProblem, use_kernel: bool, sweep: str):
-    _check_sweep(sweep)
-    if sweep == "fused" and use_kernel:
-        return lambda state: banded_kernel.sweep_banded(bp, state)
-    return lambda state: _sweep_steps(bp, state, use_kernel)
+    return wavefront.pick_sweep(
+        sweep, use_kernel, lambda state: banded_kernel.sweep_banded(bp, state),
+        lambda state: _sweep_steps(bp, state, use_kernel))
 
 
-def _make_decode_fn(bp: _BandedProblem, use_kernel: bool):
-    if use_kernel:
-        return lambda state: banded_decode.decode_banded(bp, state)
-    return lambda state: _decode_state(bp, state)
+class _Banded(Packed):
+    """The banded problem in the one driver's terms (trws.Packed): the
+    sweep and the decode that ``sweep`` and ``use_kernel`` choose."""
+
+    def __init__(self, unary, positions, nbr_positions, alphas, kernel, tol,
+                 Bh, Bw, use_kernel, sweep):
+        super().__init__(unary)
+        self.bp = _BandedProblem(unary, positions, nbr_positions, alphas,
+                                 BandedSpec(self.H, self.W, Bh, Bw), kernel,
+                                 tol)
+        self.use_kernel = use_kernel
+        self.sweep = _make_sweep_fn(self.bp, use_kernel, sweep)
+
+    def decode(self, state):
+        if self.use_kernel:
+            return banded_decode.decode_banded(self.bp, state)
+        return _decode_state(self.bp, state)
+
+    def to_state(self, messages):
+        return messages_to_state(messages, self.bp)
+
+    def messages(self, state):
+        return state_to_messages(state, self.bp)
 
 
 def solve_banded(
@@ -758,38 +772,19 @@ def solve_banded(
 
     Bh x Bw is the block size: T = Bh + Bw - 1 parallel steps per pass.
     ``sweep`` and ``use_kernel``: see the module docstring.  The stopping
-    rule (one host synchronisation per ``check_every`` sweeps) is trws.solve's.
+    rule (one host synchronisation per ``check_every`` sweeps) is the one
+    driver's, trws.drive.
 
     For repeated chunked solves of one problem use BandedRun, which packs
     the problem once instead of per call."""
-    K, H, W = unary.shape
-    with span("trws.pack"):
-        spec = BandedSpec(H, W, Bh, Bw)
-        bp = _BandedProblem(unary, positions, nbr_positions, alphas, spec,
-                            kernel, tol)
-        sweep_fn = _make_sweep_fn(bp, use_kernel, sweep)
-        decode_fn = _make_decode_fn(bp, use_kernel)
-        if messages is None:
-            messages = torch.zeros((4, K, H, W), dtype=bp.dtype,
-                                   device=bp.device)
-        state = messages_to_state(messages, bp)
-        zero = torch.zeros((), dtype=acc_dtype(bp.dtype), device=bp.device)
-        energy, lb = zero, zero
-        labels = torch.zeros((H, W), dtype=torch.int32, device=bp.device)
-    it = 0
-    while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
-        for _ in range(check_every):
-            with span("trws.sweep"):
-                state, lb = sweep_fn(state)
-        with span("trws.decode"):
-            labels, energy = decode_fn(state)
-        it += check_every
-    with span("trws.finish"):
-        messages = state_to_messages(state, bp)
-    return TRWSResult(labels, energy, lb, it, messages)
+    return drive(
+        lambda: _Banded(unary, positions, nbr_positions, alphas, kernel, tol,
+                        Bh, Bw, use_kernel, sweep),
+        messages, maxiter=maxiter, max_relgap=max_relgap,
+        check_every=check_every)
 
 
-class BandedRun:
+class BandedRun(PreparedRun):
     """Prepared banded solver: pack the problem once, sweep in chunks.
 
     Usage:
@@ -798,7 +793,8 @@ class BandedRun:
         state, energy, lb, labels = r.run(state, 100)   # chunk of 100 sweeps
         msgs = r.messages(state)                         # [4, K, H, W]
 
-    ``run`` owns the state it is given: the sweeps update it in place.
+    ``run`` (trws.PreparedRun's) owns the state it is given: the sweeps
+    update it in place.
 
     ``decode="raster"`` decodes greedily under the *raster* order on this
     state's messages (wavefront.decode_raster) instead of the banded order.
@@ -811,61 +807,18 @@ class BandedRun:
     def __init__(self, unary, positions, nbr_positions, alphas, *, kernel,
                  tol, Bh, Bw, use_kernel: bool = True, sweep: str = "fused",
                  decode: str = "banded"):
-        K, H, W = unary.shape
-        self.spec = BandedSpec(H, W, Bh, Bw)
-        self.bp = _BandedProblem(unary, positions, nbr_positions, alphas,
-                                 self.spec, kernel, tol)
-        self._sweep_fn = _make_sweep_fn(self.bp, use_kernel, sweep)
-        self._decode_fn = _make_decode_fn(self.bp, use_kernel)
         if decode not in ("banded", "raster"):
             raise ValueError(f"unknown decode {decode!r}")
+        super().__init__(_Banded(unary, positions, nbr_positions, alphas,
+                                 kernel, tol, Bh, Bw, use_kernel, sweep))
+        self.bp, self.spec = self._p.bp, self._p.bp.spec
         self.decode = decode
-        self._inputs = (unary, positions, nbr_positions, alphas)
-        self._sk = None  # the raster decode's skewed problem, built lazily
-        self.K, self.H, self.W = K, H, W
-        self.dtype = unary.dtype
-
-    def init_state(self, messages=None):
-        if messages is None:
-            messages = torch.zeros((4, self.K, self.H, self.W),
-                                   dtype=self.dtype, device=self.bp.device)
-        return messages_to_state(messages, self.bp)
-
-    def _decode(self, state):
-        if self.decode == "banded":
-            return self._decode_fn(state)
-        if self._sk is None:
-            self._sk = wavefront._Skewed(*self._inputs, self.bp.kernel,
-                                         self.bp.tol)
-        msgs = state_to_messages(state, self.bp)
-        return wavefront.decode_raster(
-            self._sk, wavefront.messages_to_groups(msgs, self.W))
-
-    def run(self, state, sweeps: int, decode_every: int | None = None):
-        """``sweeps`` passes, decoding every ``decode_every`` sweeps (default:
-        once at the end) and keeping the best labeling seen — the greedy
-        decode oscillates around convergence, so frequent decodes plus an
-        incumbent reach a target energy in fewer sweeps.
-        -> (state, best_energy, lb, best_labels)."""
-        if decode_every is None or decode_every >= sweeps:
-            decode_every = sweeps
-        bp = self.bp
-        acc_t = acc_dtype(bp.dtype)
-        bestE = torch.full((), float("inf"), dtype=acc_t, device=bp.device)
-        bestL = torch.zeros((self.H, self.W), dtype=torch.int32,
-                            device=bp.device)
-        lb = torch.zeros((), dtype=acc_t, device=bp.device)
-        for _ in range(sweeps // decode_every):
-            for _ in range(decode_every):
-                state, lb = self._sweep_fn(state)
-            labels, energy = self._decode(state)
-            better = energy < bestE
-            bestE = torch.where(better, energy, bestE)
-            bestL = torch.where(better, labels, bestL)
-        return state, bestE, lb, bestL
-
-    def messages(self, state):
-        return state_to_messages(state, self.bp)
+        if decode == "raster":
+            sk = wavefront._Skewed(unary, positions, nbr_positions, alphas,
+                                   kernel, tol)
+            self._p.decode = lambda state: wavefront.decode_raster(
+                sk, wavefront.messages_to_groups(self.messages(state),
+                                                 self.W))
 
 
 def messages_to_state(messages: torch.Tensor, bp: _BandedProblem):

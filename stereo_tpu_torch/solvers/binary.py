@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from stereo_tpu_torch import geometry
 from stereo_tpu_torch.device import acc_dtype
-from stereo_tpu_torch.energy import (default_weights, normalized,
+from stereo_tpu_torch.energy import (default_weights, positions,
                                      truncated_kernel)
 from stereo_tpu_torch.geometry import NUM_DIRS, OPP
 from stereo_tpu_torch.ops.k2_block import k2_block
@@ -47,25 +47,14 @@ class FusionResult(NamedTuple):
 
 def fusion_problem(current_planes, proposal_planes,
                    normalize: tuple | None = None, x0: int = 0):
-    """Build the K=2 label geometry for a fusion move.
+    """Build the K=2 label geometry for a fusion move: energy.positions of
+    the 2-stack.
 
     Returns (D0 [2,H,W], Q [4,2,H,W]): label 0 = current, 1 = proposal;
     positions are the continuous disparities entering the pairwise terms.
     ``x0``: the global column of column 0 (geometry.grid_points)."""
-
-    def own(planes):
-        return normalized(geometry.own_disparity(planes, x0), normalize)
-
-    def nbr(planes, d):
-        return normalized(
-            geometry.neighbor_plane_disparity(planes, d, fill=0.0, x0=x0),
-            normalize)
-
-    D0 = torch.stack([own(current_planes), own(proposal_planes)], dim=0)
-    Q = torch.stack(
-        [torch.stack([nbr(current_planes, d), nbr(proposal_planes, d)], dim=0)
-         for d in range(NUM_DIRS)], dim=0)
-    return D0, Q
+    return positions(torch.stack([current_planes, proposal_planes]),
+                     normalize, x0)
 
 
 def _tables(D0, Q, alphas, kernel, tol):

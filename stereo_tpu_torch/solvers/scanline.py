@@ -35,10 +35,11 @@ does.
 
 Layout: one ghost row of zero weights on top and bottom; four
 per-direction message buffers [K, H+2, W], rows updated in place (a row
-slice is read through its label stride, not copied).  The loops over
-sweeps and rows are Python loops; the stopping rule costs one host
-synchronisation per ``check_every`` sweeps.  With CUDA tensors the sends
-launch the hand-written kernel (csrc/minplus_send.cu) or raise;
+slice is read through its label stride, not copied).  The loop over rows
+is a Python loop; the one driver of solvers/trws.py (``drive``) runs the
+sweeps, its stopping rule one host synchronisation per ``check_every``
+sweeps.  With CUDA tensors the sends launch the hand-written kernel
+(csrc/minplus_send.cu) or raise;
 ``use_kernel=False`` runs the plain version of the same calls (a comparison
 aid for the tests and the on-device smoke run); CPU tensors always take
 the plain version.
@@ -54,8 +55,7 @@ from stereo_tpu_torch.energy import truncated_kernel
 from stereo_tpu_torch.geometry import take_plane
 from stereo_tpu_torch.ops.minplus import (minplus_send_many,
                                           minplus_send_many_ref)
-from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
-from stereo_tpu_torch.utils.profiling import span
+from stereo_tpu_torch.solvers.trws import Packed, TRWSResult, drive
 
 # direction indices (geometry.DIRS order)
 LT, RT, UP, DN = 0, 1, 2, 3
@@ -98,17 +98,17 @@ def _pad_row(a):
     return torch.nn.functional.pad(a, (0, 0, 1, 1))
 
 
-class _Rows:
+class _Rows(Packed):
     """The padded problem of one solve ([..., H+2, W]) and its per-row
-    views."""
+    views, in the one driver's terms (trws.Packed).  State: the four
+    message buffers [K, H+2, W], updated in place."""
 
     def __init__(self, unary, positions, nbr_positions, alphas, kernel, tol,
                  use_kernel):
-        K, H, W = unary.shape
+        super().__init__(unary)
+        H, W = unary.shape[-2:]
         dev, dtype = unary.device, unary.dtype
-        self.K, self.H, self.W = K, H, W
         self.kernel, self.tol = kernel, tol
-        self.device, self.dtype = dev, dtype
         self.acc_t = acc_dtype(dtype)
         self.theta = _pad_row(unary)  # [K, H+2, W]
         self.D0 = _pad_row(positions)
@@ -252,15 +252,22 @@ class _Rows:
         lb2 = phase(even_w, False)
         return lb1 + lb2
 
+    def to_state(self, messages):
+        Mp = _pad_row(messages)
+        return [Mp[d].contiguous() for d in range(4)]
+
+    def messages(self, M):
+        return torch.stack(M, 0)[:, :, 1:-1, :]
+
     def sweep(self, M):
         """One forward and one backward pass over the rows, in place ->
-        the backward pass's lower bound."""
+        (M, the backward pass's lower bound)."""
         for y in range(self.H):
             self.fwd_row(M, y)
         lb = torch.zeros((), dtype=self.acc_t, device=self.device)
         for y in range(self.H - 1, -1, -1):
             lb = lb + self.bwd_row(M, y)
-        return lb
+        return M, lb
 
     # ------------------------------------------------------------ decode
     def decode(self, M):
@@ -340,26 +347,8 @@ def solve_scanline(
     """TRW-S with the scanline ordering, on the device the tensors live on;
     a drop-in alternative to trws.solve (same message layout [4, K, H, W],
     so messages warm-start across calls)."""
-    with span("trws.pack"):
-        rows = _Rows(unary, positions, nbr_positions, alphas, kernel, tol,
-                     use_kernel)
-        K, H, W = rows.K, rows.H, rows.W
-        if messages is None:
-            messages = torch.zeros((4, K, H, W), dtype=rows.dtype,
-                                   device=rows.device)
-        Mp = _pad_row(messages.to(rows.dtype))
-        M = [Mp[d].contiguous() for d in range(4)]
-        zero = torch.zeros((), dtype=rows.acc_t, device=rows.device)
-        energy, lb = zero, zero
-        labels = torch.zeros((H, W), dtype=torch.int32, device=rows.device)
-    it = 0
-    while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
-        for _ in range(check_every):
-            with span("trws.sweep"):
-                lb = rows.sweep(M)
-        with span("trws.decode"):
-            labels, energy = rows.decode(M)
-        it += check_every
-    with span("trws.finish"):
-        out = torch.stack(M, 0)[:, :, 1:-1, :]
-    return TRWSResult(labels, energy, lb, it, out)
+    return drive(
+        lambda: _Rows(unary, positions, nbr_positions, alphas, kernel, tol,
+                      use_kernel),
+        messages, maxiter=maxiter, max_relgap=max_relgap,
+        check_every=check_every)

@@ -21,6 +21,11 @@ edge E(p, d) := (tail = neighbor of p in direction DIRS[d] -> head p), stored
 at the head pixel.  Its index meaning alternates: after the black phase every
 buffer is a function of its white endpoint's labels and vice versa.
 
+The one driver of every schedule on one device (this one, banded.py,
+wavefront.py, scanline.py): ``drive`` (the stopping rule) and
+``PreparedRun.run`` (a fixed budget), through four calls of a packed problem
+that ``_Problem`` answers itself and the other schedules through ``Packed``.
+
 PyTorch idiom: the solver's loops are Python loops; the stopping rule costs
 one host synchronisation per ``check_every`` sweeps.  On a CUDA device each
 phase runs one hand-written kernel (ops/phase_kernel.py).  ``use_kernel=False``
@@ -351,6 +356,56 @@ def _gap_open(energy, lb, max_relgap, name: str = "trws.stop") -> bool:
         return bool(relgap >= max_relgap)
 
 
+class Packed:
+    """A packed problem as the one driver asks for it: ``init_state(messages
+    [4, K, H, W])``, ``sweep(state) -> (state, lb_part)``, ``check(state,
+    lb_part) -> (energy, lb, labels)``, ``messages(state)``.  A subclass,
+    whose sweep leaves the whole bound, gives ``sweep``, ``decode(state) ->
+    (labels, energy)``, ``to_state`` and ``messages``."""
+
+    def __init__(self, unary):
+        self.K, self.H, self.W = unary.shape
+        self.dtype, self.device = unary.dtype, unary.device
+
+    def init_state(self, messages=None):
+        if messages is None:
+            messages = torch.zeros((NUM_DIRS, self.K, self.H, self.W),
+                                   dtype=self.dtype, device=self.device)
+        return self.to_state(messages.to(self.dtype))
+
+    def check(self, state, lb):
+        labels, energy = self.decode(state)
+        return energy, lb, labels
+
+
+def drive(pack, messages=None, *, maxiter: int, max_relgap: float,
+          check_every: int) -> TRWSResult:
+    """The reference's stopping rule over the problem ``pack()`` builds (a
+    _Problem or a Packed): ``check_every`` sweeps and a decode a round until
+    the gap closes or ``maxiter`` sweeps are spent.  The first round always
+    runs; a budget that ``check_every`` does not divide is overshot to its
+    next multiple; the test (one host sync) runs only while sweeps remain.
+    Its flat trws.* spans are read by the benchmark's per-layer metrics."""
+    with span("trws.pack"):
+        prob = pack()
+        state = prob.init_state(messages)
+        zero = torch.zeros((), dtype=acc_dtype(prob.dtype),
+                           device=prob.device)
+        energy, lb = zero, zero
+        labels = torch.zeros((prob.H, prob.W), dtype=torch.int32,
+                             device=prob.device)
+    it = 0
+    while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
+        for _ in range(check_every):
+            with span("trws.sweep"):
+                state, lb_sweep = prob.sweep(state)
+        with span("trws.decode"):
+            energy, lb, labels = prob.check(state, lb_sweep)
+        it += check_every
+    with span("trws.finish"):
+        return TRWSResult(labels, energy, lb, it, prob.messages(state))
+
+
 def solve(
     unary: torch.Tensor,  # [K, H, W]
     positions: torch.Tensor,  # D0 [K, H, W]: label k's plane at p, eval at p
@@ -369,7 +424,7 @@ def solve(
     compact: bool | None = None,  # checkerboard H-compaction (None = auto)
 ) -> TRWSResult:
     """Run checkerboard TRW-S (or plain loopy BP) to the reference's stopping
-    rule, on the device the tensors live on.
+    rule (``drive``), on the device the tensors live on.
 
     mode="bp": gamma = 1, no lower bound (it stays 0, so the relgap rule
     degenerates to maxiter).  ``compact=None`` resolves to the compacted
@@ -378,29 +433,54 @@ def solve(
     counterpart of the JAX package's ``use_pallas``); leave it True
     otherwise.  ``message_dtype`` narrows the message storage (see the
     module's note); the result's messages are in it."""
-    with span("trws.pack"):
-        prob = _Problem(unary, positions, nbr_positions, alphas, kernel, tol,
-                        mode, compact, use_kernel,
-                        message_dtype=message_dtype)
-        M = prob.init_state(messages)
-        zero = torch.zeros((), dtype=acc_dtype(prob.dtype),
-                           device=prob.device)
-        energy, lb = zero, zero
-        labels = torch.zeros((prob.H, prob.W), dtype=torch.int32,
-                             device=prob.device)
-    it = 0
-    while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
-        for _ in range(check_every):
-            with span("trws.sweep"):
-                M, lb_sweep = prob.sweep(M)
-        with span("trws.decode"):
-            energy, lb, labels = prob.check(M, lb_sweep)
-        it += check_every
-    with span("trws.finish"):
-        return TRWSResult(labels, energy, lb, it, prob.messages(M))
+    return drive(
+        lambda: _Problem(unary, positions, nbr_positions, alphas, kernel, tol,
+                         mode, compact, use_kernel,
+                         message_dtype=message_dtype),
+        messages, maxiter=maxiter, max_relgap=max_relgap,
+        check_every=check_every)
 
 
-class TRWSRun:
+class PreparedRun:
+    """Fixed-budget driving of a problem packed once (a _Problem or a
+    Packed): the ``run`` of TRWSRun and banded.BandedRun."""
+
+    def __init__(self, packed):
+        self._p = packed
+        self.K, self.H, self.W = packed.K, packed.H, packed.W
+        self.dtype = packed.dtype
+
+    def init_state(self, messages=None):
+        return self._p.init_state(messages)
+
+    def messages(self, state):
+        return self._p.messages(state)
+
+    def run(self, state, sweeps: int, decode_every: int | None = None):
+        """``sweeps`` passes, decoding every ``decode_every`` sweeps
+        (default: once at the end) and keeping the best labeling seen: the
+        greedy decode oscillates around convergence and any decode is
+        feasible, so the incumbent is never worse than the last.
+        -> (state, best_energy, lb, best_labels).  No host synchronisation
+        inside; the sweeps may update the state in place."""
+        if decode_every is None or decode_every >= sweeps:
+            decode_every = sweeps
+        p = self._p
+        acc_t = acc_dtype(p.dtype)
+        bestE = torch.full((), float("inf"), dtype=acc_t, device=p.device)
+        bestL = torch.zeros((p.H, p.W), dtype=torch.int32, device=p.device)
+        lb = torch.zeros((), dtype=acc_t, device=p.device)
+        for _ in range(sweeps // decode_every):
+            for _ in range(decode_every):
+                state, lb_sweep = p.sweep(state)
+            energy, lb, labels = p.check(state, lb_sweep)
+            better = energy < bestE
+            bestE = torch.where(better, energy, bestE)
+            bestL = torch.where(better, labels, bestL)
+        return state, bestE, lb, bestL
+
+
+class TRWSRun(PreparedRun):
     """Prepared checkerboard solver: pack the problem once, sweep in chunks.
 
     Usage:
@@ -411,52 +491,19 @@ class TRWSRun:
         res = r.solve()                            # the reference stopping
                                                    # rule, chunked driving
 
-    ``run`` performs a fixed budget of forward+backward sweeps, decoding every
-    ``decode_every`` and keeping the best labeling seen (any decode is
-    feasible, so the incumbent is never worse than the last).  The message
-    trajectory is iteration-exact with ``solve`` for matching compact
-    settings.
+    The message trajectory of ``run`` is iteration-exact with ``solve`` for
+    matching compact settings.
     """
 
     def __init__(self, unary, positions, nbr_positions, alphas, *, kernel,
                  tol, mode: str = "trws", use_kernel: bool = True,
                  compact: bool | None = None,
                  message_dtype: torch.dtype | None = None):
-        self._p = _Problem(unary, positions, nbr_positions, alphas, kernel,
-                           tol, mode, compact, use_kernel,
-                           message_dtype=message_dtype)
-        self.K, self.H, self.W = self._p.K, self._p.H, self._p.W
+        super().__init__(_Problem(unary, positions, nbr_positions, alphas,
+                                  kernel, tol, mode, compact, use_kernel,
+                                  message_dtype=message_dtype))
         self.kernel, self.tol, self.mode = kernel, tol, mode
-        self.dtype = self._p.dtype
         self.compact = self._p.compact
-
-    def init_state(self, messages=None):
-        return self._p.init_state(messages)
-
-    def messages(self, state):
-        return self._p.messages(state)
-
-    def run(self, state, sweeps: int, decode_every: int | None = None):
-        """``sweeps`` forward+backward passes; decode every ``decode_every``
-        keeping the best labeling.  -> (state, best_energy, lb, best_labels).
-        No host synchronisation inside."""
-        if decode_every is None or decode_every >= sweeps:
-            decode_every = sweeps
-        n_seg = sweeps // decode_every
-        p = self._p
-        acc_t = acc_dtype(p.dtype)
-        bestE = torch.full((), float("inf"), dtype=acc_t, device=p.device)
-        bestL = torch.zeros((p.H, p.W), dtype=torch.int32, device=p.device)
-        lb = torch.zeros((), dtype=acc_t, device=p.device)
-        M = state
-        for _ in range(n_seg):
-            for _ in range(decode_every):
-                M, lb_sweep = p.sweep(M)
-            energy, lb, labels = p.check(M, lb_sweep)
-            better = energy < bestE
-            bestE = torch.where(better, energy, bestE)
-            bestL = torch.where(better, labels, bestL)
-        return M, bestE, lb, bestL
 
     def solve(self, maxiter: int = 1000, max_relgap: float = 1e-4,
               check_every: int = 8, chunk: int = 300, messages=None):

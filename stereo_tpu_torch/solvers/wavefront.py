@@ -51,8 +51,12 @@ take the plain versions.  Both sweeps and both values of ``use_kernel`` give
 the same messages (bit for bit in float32 on the card); the fused kernel's
 lower bound is summed in another order and agrees to float32 rounding.
 
-``skew`` / ``unskew``, ``_head`` / ``_tail`` / ``_sends`` and the direction
-constants are shared with solvers/banded.py.
+The one driver of solvers/trws.py runs ``solve_wavefront`` through
+``_Raster``, which holds the chosen sweep.
+
+``skew`` / ``unskew``, ``_head`` / ``_tail`` / ``_sends``, ``pick_sweep``
+(the check of ``sweep=``) and the direction constants are shared with
+solvers/banded.py.
 """
 
 from __future__ import annotations
@@ -67,8 +71,7 @@ from stereo_tpu_torch.geometry import take_plane
 from stereo_tpu_torch.ops import wavefront_kernel
 from stereo_tpu_torch.ops.minplus import (minplus_send_many,
                                           minplus_send_many_ref)
-from stereo_tpu_torch.solvers.trws import TRWSResult, _gap_open
-from stereo_tpu_torch.utils.profiling import span
+from stereo_tpu_torch.solvers.trws import Packed, TRWSResult, drive
 
 LT, RT, UP, DN = 0, 1, 2, 3
 # direction groups: A = (RT, DN), written by the forward pass; B = (LT, UP)
@@ -363,12 +366,37 @@ def sends_per_sweep(T: int) -> int:
     return 2 * T
 
 
-def _make_sweep_fn(sk: _Skewed, use_kernel: bool, sweep: str):
+def pick_sweep(sweep: str, use_kernel: bool, fused, steps):
+    """The sweep ``sweep`` names, of a schedule with both (this one and
+    solvers/banded.py): ``fused`` (state -> (state, lb), one kernel launch)
+    for "fused" with the kernels on, else ``steps``."""
     if sweep not in _SWEEPS:
         raise ValueError(f"unknown sweep {sweep!r}; one of {_SWEEPS}")
-    if sweep == "fused" and use_kernel:
-        return lambda M: wavefront_kernel.sweep_wavefront(sk, M)
-    return lambda M: _sweep_steps(sk, M, use_kernel)
+    return fused if sweep == "fused" and use_kernel else steps
+
+
+class _Raster(Packed):
+    """The skewed problem in the one driver's terms (trws.Packed), with the
+    sweep that ``sweep`` and ``use_kernel`` choose."""
+
+    def __init__(self, unary, positions, nbr_positions, alphas, kernel, tol,
+                 use_kernel, sweep):
+        super().__init__(unary)
+        sk = self.sk = _Skewed(unary, positions, nbr_positions, alphas,
+                               kernel, tol)
+        self.sweep = pick_sweep(
+            sweep, use_kernel,
+            lambda M: wavefront_kernel.sweep_wavefront(sk, M),
+            lambda M: _sweep_steps(sk, M, use_kernel))
+
+    def decode(self, M):
+        return decode_raster(self.sk, M)
+
+    def to_state(self, messages):
+        return messages_to_groups(messages, self.W)
+
+    def messages(self, M):
+        return groups_to_messages(*M, self.W)
 
 
 def solve_wavefront(
@@ -391,26 +419,9 @@ def solve_wavefront(
 
     ``sweep`` and ``use_kernel``: see the module docstring.  The stopping
     rule (one host synchronisation per ``check_every`` sweeps) is
-    trws.solve's."""
-    K, H, W = unary.shape
-    with span("trws.pack"):
-        sk = _Skewed(unary, positions, nbr_positions, alphas, kernel, tol)
-        sweep_fn = _make_sweep_fn(sk, use_kernel, sweep)
-        if messages is None:
-            messages = torch.zeros((4, K, H, W), dtype=sk.dtype,
-                                   device=sk.device)
-        M = messages_to_groups(messages.to(sk.dtype), W)
-        zero = torch.zeros((), dtype=acc_dtype(sk.dtype), device=sk.device)
-        energy, lb = zero, zero
-        labels = torch.zeros((H, W), dtype=torch.int32, device=sk.device)
-    it = 0
-    while it < maxiter and (it == 0 or _gap_open(energy, lb, max_relgap)):
-        for _ in range(check_every):
-            with span("trws.sweep"):
-                M, lb = sweep_fn(M)
-        with span("trws.decode"):
-            labels, energy = decode_raster(sk, M)
-        it += check_every
-    with span("trws.finish"):
-        messages = groups_to_messages(*M, W)
-    return TRWSResult(labels, energy, lb, it, messages)
+    the one driver's, trws.drive."""
+    return drive(
+        lambda: _Raster(unary, positions, nbr_positions, alphas, kernel, tol,
+                        use_kernel, sweep),
+        messages, maxiter=maxiter, max_relgap=max_relgap,
+        check_every=check_every)

@@ -196,7 +196,7 @@ def test_pool_per_pair_convergence_and_eviction():
     models, props = _models(3)
     singles = []
     for dm, pr in zip(models, props):
-        u, d0, q, al, _ = batch_mod.model_problem(dm, pr)
+        u, d0, q, al, _ = dm.simultaneous_problem(pr)
         singles.append(t_trws.solve(u, d0, q, al, kernel=1, tol=dm.tol,
                                     maxiter=200, max_relgap=1e-4,
                                     check_every=5))

@@ -56,7 +56,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from stereo_tpu_torch.device import resolve_device  # noqa: E402
 from stereo_tpu_torch.ops import (banded_kernel, minplus,  # noqa: E402
                                   phase_kernel, wavefront_kernel)
-from stereo_tpu_torch.parallel import batch  # noqa: E402
 from stereo_tpu_torch.solvers import (  # noqa: E402
     banded, hierarchy, scanline, trws, trws_host, wavefront)
 
@@ -103,7 +102,7 @@ def build_problem(dm, proposals):
     """The TRW-S problem of a model's simultaneous fusion over
     ``proposals``, the model's assignment joining as the last label:
     (unary [K, H, W], D0 [K, H, W], Q [4, K, H, W], alphas [4, H, W])."""
-    return batch.model_problem(dm, proposals)[:4]
+    return dm.simultaneous_problem(proposals)[:4]
 
 
 def default_cache(pair: str) -> str:
